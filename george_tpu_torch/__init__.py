@@ -1,0 +1,17 @@
+# -*- coding: utf-8 -*-
+"""george_tpu_torch — the PyTorch / CUDA port of george_tpu.
+
+Gaussian-process regression with the YAML kernel DSL, the ``GP`` object,
+and a sampler layer whose hot path, the batched value and gradient of the
+state-space (Kalman) likelihood, is a CUDA kernel written by hand for
+Hopper (``csrc/kalman_vg.cu``).  Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "kernels", "GP", "Metric"]
+
+from . import kernels
+from .gp import GP
+from .metrics import Metric

@@ -1,0 +1,378 @@
+# -*- coding: utf-8 -*-
+"""Exact state-space (Kalman) GP likelihoods for 1-D Markovian kernels.
+
+For one-dimensional inputs and the Markovian kernel families the GP is the
+output of a linear time-invariant SDE, and the marginal likelihood is the
+Kalman prediction-error decomposition: O(N) work.  Representable exactly
+(state dimension in parens):
+
+  * ``ExpKernel``      — Matern-1/2, Ornstein-Uhlenbeck (1)
+  * ``Matern32Kernel``  (2)
+  * ``Matern52Kernel``  (3)
+  * ``CosineKernel``   — undamped oscillator, Q = 0 (2)
+  * ``ConstantKernel`` — random offset, A = 1, Q = 0 (1)
+  * sums of the above (block-diagonal state stacking), and products with
+    constants (variance scaling)
+
+Everything else raises :class:`StateSpaceUnsupported`.
+
+The discrete-time system is exact for irregular sampling: per-gap
+transitions ``A = expm(F dt)`` in closed form and process noise
+``Q = Pinf - A Pinf A^T`` from stationarity.
+
+Layout: the JAX package scalarizes the filter (every state entry a
+chains-wide vector) because small stacked matrices pad to the TPU's
+register tile.  Here the plain filter is batch-first PyTorch: the per-gap
+systems of all steps are built at once, entrywise from the closed forms
+(:func:`_build_system_entries`), and stacked into (steps, B, D, D) tensors;
+the sequential recurrence is then a handful of batched small matmuls per
+step.  The hand-written CUDA kernel (:mod:`george_tpu_torch.ops.kalman`)
+runs the same recurrence with the whole state of a chain in registers.
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from ..dsl.compiler import Leaf, node_size
+
+__all__ = [
+    "StateSpaceUnsupported", "Term", "extract_terms", "supports_state_space",
+    "FAMILY_CODES", "kalman_loglike",
+]
+
+
+class StateSpaceUnsupported(ValueError):
+    """Kernel tree has no exact finite-dimensional SDE representation."""
+
+
+_MATERN_C = {0: 1.0, 1: math.sqrt(3.0), 2: math.sqrt(5.0)}
+_MATERN_BY_NAME = {"ExpKernel": 0, "Matern32Kernel": 1, "Matern52Kernel": 2}
+_DIMS = {"matern0": 1, "matern1": 2, "matern2": 3, "cosine": 2, "const": 1}
+
+# Family ids shared with the CUDA kernel (csrc/kalman_vg.cu, KV_FAMS).
+FAMILY_CODES = {"matern0": 0, "matern1": 1, "matern2": 2, "cosine": 3,
+                "const": 4}
+
+
+# -- term extraction from the kernel expression tree -------------------------
+
+@dataclass(frozen=True)
+class Term:
+    """One Markovian block of the state.
+
+    ``sigma2 = prod(naxes * exp(th[i]) for naxes, i in scales)`` (1 when
+    ``scales`` is empty) and, from the kernel parameter ``th[rate]``, the
+    family's rate: ``lam = c_p exp(-th/2)`` (materns), ``omega =
+    2 pi / exp(th)`` (cosine); ``rate`` is -1 for a constant.  Indices are
+    into the kernel's own parameter vector.  The explicit structure (rather
+    than a closure) is what lets the CUDA kernel evaluate the same
+    quantities.
+    """
+
+    family: str
+    rate: int = -1
+    scales: Tuple[Tuple[int, int], ...] = ()
+
+    @property
+    def dim(self):
+        return _DIMS[self.family]
+
+    def shifted(self, off):
+        return Term(self.family, self.rate + off if self.rate >= 0 else -1,
+                    tuple((n, i + off) for n, i in self.scales))
+
+    def scaled(self, scales):
+        return Term(self.family, self.rate, self.scales + tuple(scales))
+
+    def sig_rate(self, th):
+        """``th``: sequence of kernel-parameter (B,) tensors -> (sigma2,
+        rate) as (B,) tensors."""
+        like = th[self.rate] if self.rate >= 0 else th[self.scales[0][1]]
+        sigma2 = torch.ones_like(like)
+        for naxes, i in self.scales:
+            sigma2 = sigma2 * (float(naxes) * torch.exp(th[i]))
+        if self.family.startswith("matern"):
+            c = _MATERN_C[int(self.family[-1])]
+            return sigma2, c * torch.exp(-0.5 * th[self.rate])
+        if self.family == "cosine":
+            return sigma2, 2.0 * math.pi / torch.exp(th[self.rate])
+        return sigma2, torch.zeros_like(like)
+
+
+def _leaf_terms(leaf: Leaf):
+    """One leaf -> (constant scales | None, [terms])."""
+    if leaf.blocked:
+        raise StateSpaceUnsupported("blocked kernels are not Markovian")
+    if leaf.name == "EmptyKernel":
+        return None, []
+    if leaf.name == "ConstantKernel":
+        return ((len(leaf.axes), 0),), []
+    if leaf.name in _MATERN_BY_NAME:
+        if len(leaf.axes) != 1:
+            raise StateSpaceUnsupported("state-space path needs 1-D inputs")
+        if leaf.metric_type not in (0, 1):
+            raise StateSpaceUnsupported("general metrics are not separable")
+        # r2 = tau^2 exp(-log_M): lam = c exp(-log_M / 2).
+        p = _MATERN_BY_NAME[leaf.name]
+        return None, [Term("matern%d" % p, rate=0)]
+    if leaf.name == "CosineKernel":
+        if len(leaf.axes) != 1:
+            raise StateSpaceUnsupported("state-space path needs 1-D inputs")
+        return None, [Term("cosine", rate=0)]
+    raise StateSpaceUnsupported(
+        "kernel '{0}' has no exact state-space form".format(leaf.name)
+    )
+
+
+def _tree_terms(node):
+    """Recursive extraction: (constant scales | None, [terms])."""
+    if isinstance(node, Leaf):
+        return _leaf_terms(node)
+
+    n1 = node_size(node.k1)
+    c1, t1 = _tree_terms(node.k1)
+    c2, t2 = _tree_terms(node.k2)
+    t2 = [t.shifted(n1) for t in t2]
+    if c2 is not None:
+        c2 = tuple((n, i + n1) for n, i in c2)
+
+    if node.op == "sum":
+        # Constants become explicit random-offset terms when summed.
+        terms = list(t1) + list(t2)
+        for cf in (c1, c2):
+            if cf is not None:
+                terms.append(Term("const", scales=cf))
+        return None, terms
+
+    # product
+    if t1 and t2:
+        raise StateSpaceUnsupported(
+            "product of two dynamic kernels has no closed state-space form"
+        )
+    if not t1 and not t2:        # const * const
+        if c1 is None or c2 is None:
+            return None, []
+        return c1 + c2, []
+    terms, scale = (t1, c2) if t1 else (t2, c1)
+    if scale is None:            # product with Empty -> zero kernel
+        return None, []
+    return None, [t.scaled(scale) for t in terms]
+
+
+def extract_terms(node):
+    """Kernel tree -> list of :class:`Term` (or raise)."""
+    cf, terms = _tree_terms(node)
+    if cf is not None:
+        terms = terms + [Term("const", scales=cf)]
+    if not terms:
+        raise StateSpaceUnsupported("empty kernel has no state")
+    return terms
+
+
+def supports_state_space(node):
+    try:
+        extract_terms(node)
+        return True
+    except StateSpaceUnsupported:
+        return False
+
+
+# -- per-term discrete-time systems (entrywise closed forms) -------------------
+#
+# Entries are tensors broadcastable against each other (per-chain (B,)
+# parameters against (steps, 1) gaps); ``None`` marks a structural zero.
+
+def _matern_entries(p, sigma2, lam, dt):
+    """Entrywise (A, Pinf) for the Matern-(p+1/2) SDE.
+
+    F = -lam I + N with N nilpotent (single Jordan block), so
+    expm(F dt) = e^{-lam dt} sum_{k<=p} (N dt)^k / k! exactly.
+    """
+    if p == 0:
+        return [[torch.exp(-lam * dt)]], [[sigma2]]
+    if p == 1:
+        lt = lam * dt
+        e = torch.exp(-lt)
+        A = [[e * (1.0 + lt), e * dt],
+             [-e * lam * lam * dt, e * (1.0 - lt)]]
+        Pinf = [[sigma2, None], [None, sigma2 * lam * lam]]
+        return A, Pinf
+    # p == 2: A = e^{-l dt} (I + N dt + N^2 dt^2 / 2), expanded entrywise.
+    lt = lam * dt
+    e = torch.exp(-lt)
+    l2 = lam * lam
+    A = [
+        [e * (1.0 + lt + 0.5 * lt * lt), e * dt * (1.0 + lt),
+         e * 0.5 * dt * dt],
+        [e * (-0.5 * l2 * lam * dt * dt), e * (1.0 + lt - lt * lt),
+         e * dt * (1.0 - 0.5 * lt)],
+        [e * (l2 * lam * dt * (0.5 * lt - 1.0)), e * (l2 * dt * (lt - 3.0)),
+         e * (1.0 - 2.0 * lt + 0.5 * lt * lt)],
+    ]
+    kappa = l2 / 3.0
+    Pinf = [[sigma2, None, -sigma2 * kappa],
+            [None, sigma2 * kappa, None],
+            [-sigma2 * kappa, None, sigma2 * l2 * l2]]
+    return A, Pinf
+
+
+def _cosine_entries(sigma2, omega, dt):
+    wt = omega * dt
+    c, s = torch.cos(wt), torch.sin(wt)
+    return [[c, -s], [s, c]], [[sigma2, None], [None, sigma2]]
+
+
+def _const_entries(sigma2, dt):
+    return [[1.0 + 0.0 * dt]], [[sigma2]]
+
+
+def _family_entries(family, sigma2, rate, dt):
+    if family.startswith("matern"):
+        return _matern_entries(int(family[-1]), sigma2, rate, dt)
+    if family == "cosine":
+        return _cosine_entries(sigma2, rate, dt)
+    return _const_entries(sigma2, dt)
+
+
+def _q_entries(A, Pinf, d):
+    """Entrywise Q = Pinf - A Pinf A^T (None-aware, symmetric)."""
+    Q = [[None] * d for _ in range(d)]
+    for i in range(d):
+        for j in range(i + 1):
+            acc = None
+            for k in range(d):
+                if A[i][k] is None:
+                    continue
+                for l in range(d):
+                    if Pinf[k][l] is None or A[j][l] is None:
+                        continue
+                    term = A[i][k] * Pinf[k][l] * A[j][l]
+                    acc = term if acc is None else acc + term
+            pij = Pinf[i][j]
+            if pij is None:
+                Q[i][j] = None if acc is None else -acc
+            else:
+                Q[i][j] = pij if acc is None else pij - acc
+            Q[j][i] = Q[i][j]
+    return Q
+
+
+def _build_system_entries(terms, sig_rates, dt):
+    """Entrywise block-diagonal (Phi [D][D], Q [D][D], Pinf [D][D])."""
+    D = sum(t.dim for t in terms)
+    Phi = [[None] * D for _ in range(D)]
+    Q = [[None] * D for _ in range(D)]
+    Pinf = [[None] * D for _ in range(D)]
+    off = 0
+    for t, (sigma2, rate) in zip(terms, sig_rates):
+        d = t.dim
+        A_b, P_b = _family_entries(t.family, sigma2, rate, dt)
+        Q_b = _q_entries(A_b, P_b, d)
+        for i in range(d):
+            for j in range(d):
+                Phi[off + i][off + j] = A_b[i][j]
+                Q[off + i][off + j] = Q_b[i][j]
+                Pinf[off + i][off + j] = P_b[i][j]
+        off += d
+    return Phi, Q, Pinf
+
+
+def _stack_entries(E, shape, like):
+    """Nested-list entries (None = 0) -> a stacked (*shape, d, d) tensor."""
+    z = like.new_zeros(shape)
+    rows = [
+        torch.stack([z if e is None else torch.broadcast_to(e + z, shape)
+                     for e in row], dim=-1)
+        for row in E
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+# -- the batch-first sequential filter ------------------------------------------
+
+class _FilterMachine:
+    """Batched filter building blocks for a fixed term list.
+
+    State: means ``m`` (B, D) and covariances ``P`` (B, D, D); ``h`` selects
+    the observed coordinate of every block (the first one).
+    """
+
+    def __init__(self, terms, like):
+        self.terms = terms
+        self.D = sum(t.dim for t in terms)
+        self.obs = []
+        off = 0
+        for t in terms:
+            self.obs.append(off)
+            off += t.dim
+        self.h = like.new_zeros(self.D)
+        self.h[self.obs] = 1.0
+        self.eye = torch.eye(self.D, dtype=like.dtype, device=like.device)
+
+    def sig_rates(self, th_kernel):
+        """Per-term (sigma2, rate); ``th_kernel`` (B, P) tensor."""
+        cols = [th_kernel[:, i] for i in range(th_kernel.shape[1])]
+        return [t.sig_rate(cols) for t in self.terms]
+
+    def systems(self, sig_rates, dt):
+        """(Phi, Q) for every gap, (steps, B, D, D), and Pinf (B, D, D)."""
+        like = sig_rates[0][0]
+        B = like.shape[0]
+        Phi_e, Q_e, Pinf_e = _build_system_entries(
+            self.terms, sig_rates, dt[:, None]
+        )
+        shape = (dt.shape[0], B)
+        Phi = _stack_entries(Phi_e, shape, like)
+        Q = _stack_entries(Q_e, shape, like)
+        _, _, Pinf_e = _build_system_entries(
+            self.terms, sig_rates, like.new_zeros(())
+        )
+        return Phi, Q, _stack_entries(Pinf_e, (B,), like)
+
+    def obs_update(self, m_, P_, y_k, v_k, acc):
+        # Joseph-form update keeps P PSD in float32.
+        h = self.h
+        Ph = P_ @ h                                  # (B, D)
+        S = Ph @ h + v_k
+        innov = y_k - m_ @ h
+        K = Ph / S[:, None]
+        m = m_ + K * innov[:, None]
+        Bm = self.eye - K[:, :, None] * h[None, None, :]
+        P = Bm @ P_ @ Bm.transpose(-1, -2) \
+            + v_k[:, None, None] * K[:, :, None] * K[:, None, :]
+        acc = acc - 0.5 * (torch.log(2.0 * math.pi * S) + innov * innov / S)
+        return m, P, acc
+
+    @staticmethod
+    def predict(m, P, Phi_k, Q_k):
+        mp = (Phi_k @ m[:, :, None])[:, :, 0]
+        Pp = Phi_k @ P @ Phi_k.transpose(-1, -2) + Q_k
+        return mp, Pp
+
+
+def kalman_loglike(terms, th_kernel, dt, r, v):
+    """Prediction-error log-likelihood per chain.
+
+    :param th_kernel: (B, P) kernel parameters.
+    :param dt: (N-1,) gaps of the sorted inputs.
+    :param r, v: (B, N) or (N,) residuals and observation variances.
+    :returns: (B,) log-likelihoods (differentiable by autograd).
+    """
+    fm = _FilterMachine(terms, th_kernel)
+    B = th_kernel.shape[0]
+    n = dt.shape[0] + 1
+    r = torch.broadcast_to(r, (B, n))
+    v = torch.broadcast_to(v, (B, n))
+    sig_rates = fm.sig_rates(th_kernel)
+    Phi, Q, Pinf = fm.systems(sig_rates, dt)
+    m = th_kernel.new_zeros(B, fm.D)
+    acc = th_kernel.new_zeros(B)
+    # Step 0 observes the stationary prior directly.
+    m, P, acc = fm.obs_update(m, Pinf, r[:, 0], v[:, 0], acc)
+    for k in range(n - 1):
+        m, P = fm.predict(m, P, Phi[k], Q[k])
+        m, P, acc = fm.obs_update(m, P, r[:, k + 1], v[:, k + 1], acc)
+    return acc

@@ -1,41 +1,64 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's sampler paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-The main path is the hyperparameter posterior of ``1.0 * Matern32Kernel(1.0)``
-with a fitted log white noise over N = 1000 sorted inputs, sampled by
-ChEES-HMC with 16384 chains; every leapfrog is one launch of the hand-written
-CUDA Kalman value+gradient kernel (``george_tpu_torch/csrc/kalman_vg.cu``).
+Three paths, each through the entry points a user calls
+(``build_gp_log_prob`` and ``run_mcmc(algorithm="chees")``), each over a
+hand-written CUDA kernel:
+
+* the main path: the hyperparameter posterior of ``1.0 *
+  Matern32Kernel(1.0)`` with a fitted log white noise over N = 1000 sorted
+  inputs, 16384 chains, every leapfrog one launch of the Kalman
+  value+gradient kernel (``george_tpu_torch/csrc/kalman_vg.cu``);
+* the dense path (``benchmarks/config5.py``): ``1.0 * Matern32Kernel`` on
+  two of three input axes under an axis-aligned metric, fitted mean and log
+  white noise, N = 128, 4096 chains, every leapfrog one launch of the dense
+  value+gradient kernel (``csrc/dense_vg.cu``, its kernel tree generated by
+  ``dsl/cuda_codegen.py``);
+* the long series (``benchmarks/kalman_stream.py``): the main path's model
+  over N = 100,000 points, 1024 chains, through the Kalman kernel streaming
+  the series (the role of the reference's streaming kernel).
 
 Phases (any failure exits non-zero):
 
 1. device and build: the card's name and power limit, every kernel
-   instantiation built from the checkout's sources (in parallel), the
+   instantiation built from the checkout's sources (one ``nvcc`` each, all
+   in parallel; the Kalman zoo's in the background until phase 10), the
    ``-Xptxas -v`` register / shared-memory / spill lines;
-2. kernel against its plain PyTorch version, at full width (B = 16384,
-   N = 1000) and on a small zoo of kernels at B = 256, in float32 and float64;
+2. Kalman kernel against its plain PyTorch version at full width
+   (B = 16384, N = 1000);
 3. exactness across methods: the state-space density at theta0 equals the
    dense ``GP.log_likelihood`` plus the prior, and the dense GP reproduces
    the published anchor 133.946394912;
-4. the main path: ``run_mcmc(algorithm="chees")`` from two seeds, with the
-   kernel's launch count, acceptance, divergences, split R-hat and the
-   agreement of the posterior means checked;
-5. timing of the kernel and of its plain version with CUDA events, beside
-   the kernel's bound.
+4. the main path, ChEES from two seeds: launch count, acceptance,
+   divergences, split R-hat, agreement of the posterior means;
+5. timing of the Kalman kernel and its plain version (CUDA events);
+6. dense kernel against its plain version: config #5 at B = 4096, N = 128;
+   N = 136 and 256; a zoo at B = 256 with a failed factorization and an
+   out-of-bounds point;
+7. the dense path, ChEES from two seeds, with the same gates as phase 4;
+8. the long series: float32 kernel against float64 kernel at B = 1024,
+   float64 kernel against the plain version just above N = 32768, and a
+   short ChEES run through the entry points;
+9. timing of the dense kernel (B = 4096, N = 128) and of the Kalman kernel
+   on the long series (B = 1024, N = 100,000), beside their bounds and plain
+   versions;
+10. the Kalman kernel on a zoo of kernels at B = 256 against its plain
+    version.
 
 The second-to-last line of standard output is a JSON object describing each
-kernel of the path; the last is ``{"ok": true, "device": {...}}``.  Without
+kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
 a CUDA card, or without the package beside this script, it exits with
 code 2 and prints no result.
 """
 
 import json
-import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -66,6 +89,30 @@ REF_DRAWS_ACCEPT = (0.8708, 0.9132)
 REF_STEP_SIZE = (0.2572, 0.2967)
 REF_LEAPFROGS_PER_DRAW = (7.72, 9.72)
 
+# The dense path (benchmarks/config5.py).
+DENSE_N = 128
+DENSE_CHAINS = 4096
+# 2000 draws, not the benchmark's 400: the axis-2 metric parameter mixes
+# slowly (some 40 effective draws per chain in 400, in the plain float64
+# engine as in the kernel), and 400 draws leave its split R-hat at ~1.025.
+DENSE_SAMPLES = 2000
+DENSE_MAX_LEAPFROG = 32
+# The JAX package's ChEES run on the dense path (tools/chees_reference.py
+# --path dense: the same data, model, prior, initial spread and warmup; 128
+# chains, 100 draws, float64 on a CPU), seeds 1-3: (lowest, highest).
+REF_DENSE_ACCEPT = (0.7931, 0.8333)
+REF_DENSE_STEP_SIZE = (0.4331, 0.4553)
+REF_DENSE_LEAPFROGS_PER_DRAW = (4.62, 6.01)
+
+# The long series (benchmarks/kalman_stream.py).
+LONG_N = 100_000
+LONG_CHAINS = 1024
+# Just above the reference's SMEM-resident kernel, for the check against
+# the plain version: a Python loop of N steps under autograd, ~2.3 ms a
+# step on the card or the host alike, whatever the chain count.
+LONG_CHECK_N = 32_769
+LONG_CHECK_CHAINS = 2
+
 
 def log(*args):
     print(*args, flush=True)
@@ -90,6 +137,25 @@ def bench_data(n, seed=42):
     return x, y, yerr
 
 
+def config5_data(n=DENSE_N, seed=7):
+    """The dataset of the JAX package's benchmarks/config5.py."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-3, 8, (n, 3))
+    yerr = 0.22 * np.ones(n)
+    y = np.sin(x[:, 0]) + 0.3 * np.cos(x[:, 2]) \
+        + yerr * rng.standard_normal(n)
+    return x, y, yerr
+
+
+def stream_data(n=LONG_N, seed=0):
+    """The dataset of the JAX package's benchmarks/kalman_stream.py."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0, n / 33.0, n))
+    yerr = 0.1 * np.ones(n)
+    y = np.sin(x) + yerr * rng.standard_normal(n)
+    return x, y, yerr
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -100,7 +166,7 @@ def card_line():
         else "nvidia-smi: " + out.stderr.strip()
 
 
-# -- operation count of the kernel (for its bound) ----------------------------
+# -- operation counts of the kernels (for their bounds) -------------------------
 
 # Primal operations of one filter step's transition for each family (Phi
 # entries and Q = Pinf - Phi Pinf Phi^T over the structural non-zeros, as
@@ -138,6 +204,12 @@ def _block_of(dims, i):
     raise IndexError(i)
 
 
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def kalman_bound(spec, B, n, itemsize=4):
     """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
     a lower bound on the operations over the FP32 peak.  Operations: the
@@ -146,9 +218,34 @@ def kalman_bound(spec, B, n, itemsize=4):
     na = len(spec.active)
     nbytes = itemsize * (B * spec.d_full + 3 * n + B * (1 + na))
     ops = B * (n - 1) * (1 + na) * step_ops(spec.terms)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound(nbytes, ops)
+
+
+def dense_ops(spec, n):
+    """Operations of one chain in csrc/dense_vg.cu, counted from its loops:
+    the covariance build (the generated tree's primal operations per
+    entry of the lower triangle), the Cholesky, the triangular inverse,
+    z = S r and alpha = S^T z, K^-1 = S^T S, and the gradient (the tree over
+    Dual<T, NA>, at least (1 + NA) times its primal operations, plus the
+    weight and NA multiply-adds per entry)."""
+    from george_tpu_torch.dsl import cuda_codegen
+
+    na = len(spec.active)
+    tri = n * (n + 1) // 2
+    tree = cuda_codegen.primal_ops(spec.node)
+    build = tri * tree + n
+    chol = sum(2 + (n - k - 1) + (n - k - 1) * (n - k) for k in range(n))
+    trtri = sum(1 + (n - j - 1) * (n - j) + (n - j - 1) for j in range(n))
+    solves = 4 * tri
+    kinv = sum((j + 1) * 2 * (n - j) for j in range(n))
+    grad = tri * ((1 + na) * tree + 3 + 2 * na)
+    return build + chol + trtri + solves + kinv + grad + 2 * n
+
+
+def dense_bound(spec, B, n, ndim, itemsize=4):
+    na = len(spec.active)
+    nbytes = itemsize * (B * spec.d_full + n * (ndim + 2) + B * (1 + na))
+    return _bound(nbytes, B * dense_ops(spec, n))
 
 
 # -- helpers -------------------------------------------------------------------
@@ -172,7 +269,7 @@ def median_ms(fn, reps, warmup=3):
 
 
 def compare(vg, theta, what, float32_like_plain=False):
-    """float32 and float64 kernel against the float64 plain version.
+    """float32 and float64 Kalman kernel against the float64 plain version.
 
     The float32 kernel is held to the reference's kernel tolerances, or,
     with ``float32_like_plain``, to the float32 plain version (the same
@@ -216,10 +313,7 @@ def compare(vg, theta, what, float32_like_plain=False):
                 float(e_g.max()) <= 2 * p_g and \
                 k_rel <= 2 * p_rel and k_gmed <= 2 * p_gmed
         elif dtype == torch.float32:
-            # The reference's own kernel tolerances (float32 kernel against
-            # a float64 filter, tests/test_pallas_kalman.py).
-            ok = bool(torch.all(e_ll <= 1e-4 * ll_ref.abs() + 1e-2)) and \
-                bool(torch.all(e_g <= 1e-3 * g_ref.abs() + 1e-2))
+            ok = within_reference_tolerance(ll, g, ll_ref, g_ref)
         else:
             # Same formulas in the same type: only rounding order differs.
             ok = bool(torch.all(e_ll <= 1e-9 * ll_ref.abs())) and \
@@ -231,6 +325,55 @@ def compare(vg, theta, what, float32_like_plain=False):
                   what, str(dtype).split(".")[-1], float(e_ll.max()),
                   float(e_g.max()), float(ll_ref.abs().max())))
     return errs
+
+
+def within_reference_tolerance(ll, g, ll_ref, g_ref):
+    """The reference's own float32 kernel tolerances against a float64
+    oracle (tests/test_pallas_kalman.py, tests/test_pallas_dense.py): ll
+    within 1e-4 |ll| + 1e-2, gradient within 1e-3 |g| + 1e-2."""
+    import torch
+
+    return bool(torch.all((ll - ll_ref).abs() <= 1e-4 * ll_ref.abs() + 1e-2)) \
+        and bool(torch.all((g - g_ref).abs() <= 1e-3 * g_ref.abs() + 1e-2))
+
+
+def compare_dense(vg, theta, what):
+    """float64 and float32 dense kernel against the float64 plain version:
+    float64 at rtol 1e-9 (the same formulas in the same type), float32 at the
+    reference's tolerances.  Chains whose factorization fails must be NaN in
+    both; the rest are compared.  Returns the largest float32 error."""
+    import torch
+    from george_tpu_torch.ops import dense
+
+    t64 = theta.to(torch.float64).contiguous()
+    ll_ref, g_ref = dense.dense_vg_torch(vg.spec, t64, *vg.data(t64))
+    failed = torch.isnan(ll_ref)
+    ok_rows = ~failed
+    err32 = 0.0
+    for dtype in (torch.float64, torch.float32):
+        ll, g = vg(theta.to(dtype).contiguous())
+        torch.cuda.synchronize()
+        ll, g = ll.double(), g.double()
+        same_failures = bool(torch.equal(torch.isnan(ll), failed)) and \
+            bool(torch.all(torch.isnan(g[failed])))
+        lr, gr, lk, gk = ll_ref[ok_rows], g_ref[ok_rows], ll[ok_rows], \
+            g[ok_rows]
+        finite = bool(torch.all(torch.isfinite(lk)) and
+                      torch.all(torch.isfinite(gk)))
+        e_ll, e_g = (lk - lr).abs(), (gk - gr).abs()
+        if dtype == torch.float64:
+            ok = bool(torch.all(e_ll <= 1e-9 * lr.abs())) and \
+                bool(torch.all(e_g <= 1e-9 * gr.abs() + 1e-9))
+        else:
+            ok = within_reference_tolerance(lk, gk, lr, gr)
+            err32 = max(float(e_ll.max()), float(e_g.max()))
+        check(finite and ok and same_failures,
+              "{0} {1}: max |ll err| {2:.3e}, max |grad err| {3:.3e} (|ll| "
+              "up to {4:.4g}; {5} failed factorizations in both)".format(
+                  what, str(dtype).split(".")[-1], float(e_ll.max()),
+                  float(e_g.max()), float(lr.abs().max()),
+                  int(failed.sum())))
+    return err32
 
 
 def full_thetas(gp, active, rng_seed, count, scale):
@@ -250,6 +393,16 @@ def main_gp(device):
     return george.GP(1.0 * kernels.Matern32Kernel(1.0),
                      white_noise=np.log(1e-4), fit_white_noise=True,
                      device=device)
+
+
+def config5_gp(device):
+    import george_tpu_torch as george
+    from george_tpu_torch import kernels
+
+    return george.GP(
+        1.0 * kernels.Matern32Kernel(metric=[1.0, 2.0], ndim=3, axes=[0, 2]),
+        white_noise=np.log(1e-3), fit_white_noise=True, mean=0.0,
+        fit_mean=True, device=device)
 
 
 def bench_prior(gp, device, dtype):
@@ -281,15 +434,141 @@ def zoo():
     return cases
 
 
+def dense_zoo():
+    """(kernel, GP keywords, parameter to freeze, N) of the dense zoo, on
+    config #5's 3-D inputs.  Every kernel's first parameter is a log
+    amplitude (the rejected points of phase 6 rely on it)."""
+    from george_tpu_torch import kernels as k
+
+    wn = dict(white_noise=np.log(1e-3), fit_white_noise=True)
+    return {
+        "expsq_iso": (lambda: 1.3 * k.ExpSquaredKernel(
+            0.7, metric_bounds=[(-3.0, 3.0)], ndim=3), wn, None, 64),
+        "matern52_frozen": (lambda: 2.0 * k.Matern52Kernel(metric=1.5,
+                                                           ndim=3),
+                            {}, "kernel:k1:log_constant", 21),
+        "sum_product": (lambda: 0.5 * k.ExpSquaredKernel(
+            metric=[0.6, 1.2], ndim=3, axes=[0, 1])
+            + k.ConstantKernel(log_constant=-0.5, ndim=3)
+            * k.Matern32Kernel(metric=2.0, ndim=3, axes=[2]), wn, None, 64),
+        "rational_quadratic": (lambda: 0.9 * k.RationalQuadraticKernel(
+            log_alpha=0.3, metric=[1.5, 0.7, 2.0], ndim=3),
+            dict(wn, mean=0.2, fit_mean=True), None, 64),
+        "non_stationary": (lambda: 0.8 * k.ExpKernel(metric=1.1, ndim=3)
+                           + k.LinearKernel(log_gamma2=2.0, order=1.0,
+                                            ndim=3, axes=[0]), wn, None, 64),
+        "block_window": (lambda: 0.3 * k.ExpSquaredKernel(2.0, ndim=3)
+                         + k.Matern32Kernel(metric=1.4, ndim=3, axes=[1],
+                                            block=[(1.0, 6.0)]),
+                         wn, None, 64),
+    }
+
+
+def chees_gates(res, seconds, launches, warmup, ref_accept, ref_step,
+                ref_leaps, seed, card):
+    """The sampler gates of phases 4 and 7.  Dual averaging holds the
+    warmup's acceptance at the 0.651 target; the draws run at the averaged
+    (smaller) step size and so accept more.  The draws, the step size and
+    the trajectory length are held to the JAX package's run: within 0.03 of
+    its range of acceptance over seeds, 10% of its range of step sizes and
+    20% of its range of leapfrogs per draw (margins for thousands of chains
+    against hundreds, and float32 against float64)."""
+    import torch
+    from george_tpu_torch.samplers import effective_sample_size, split_rhat
+
+    draw_leaps = int(res.n_leapfrog[0].sum())
+    check(launches == res.num_evaluations and
+          launches >= draw_leaps + warmup,
+          "seed {0}: kernel launches {1} == value+gradient calls {2} "
+          "(>= {3} draw leapfrogs + {4} warmup iterations)".format(
+              seed, launches, res.num_evaluations, draw_leaps, warmup))
+    check(bool(torch.all(torch.isfinite(res.samples))),
+          "seed {0}: all {1} draws finite".format(
+              seed, tuple(res.samples.shape)))
+    warm_acc = float(res.warmup_accept_prob[-TERM_BUFFER:].double().mean())
+    check(abs(warm_acc - 0.651) <= 0.15,
+          "seed {0}: mean acceptance of the last {1} warmup iterations "
+          "{2:.4f} within 0.15 of 0.651".format(seed, TERM_BUFFER, warm_acc))
+    acc = float(res.accept_prob.double().mean())
+    lo, hi = ref_accept[0] - 0.03, ref_accept[1] + 0.03
+    check(lo <= acc <= hi,
+          "seed {0}: mean acceptance of the draws {1:.4f} in [{2:.4f}, "
+          "{3:.4f}] (JAX reference {4})".format(seed, acc, lo, hi,
+                                               ref_accept))
+    eps = float(res.step_size)
+    lo, hi = 0.9 * ref_step[0], 1.1 * ref_step[1]
+    check(lo <= eps <= hi,
+          "seed {0}: step size {1:.4f} in [{2:.4f}, {3:.4f}] (JAX "
+          "reference {4})".format(seed, eps, lo, hi, ref_step))
+    leaps = float(res.n_leapfrog.double().mean())
+    lo, hi = 0.8 * ref_leaps[0], 1.2 * ref_leaps[1]
+    check(lo <= leaps <= hi,
+          "seed {0}: {1:.2f} leapfrogs per draw in [{2:.2f}, {3:.2f}] "
+          "(JAX reference {4})".format(seed, leaps, lo, hi, ref_leaps))
+    div = float(res.diverging.double().mean())
+    check(div < 0.01, "seed {0}: divergence fraction {1:.5f} < 0.01"
+          .format(seed, div))
+    rhat = float(split_rhat(res.samples.double()).max())
+    check(rhat < 1.01, "seed {0}: max split R-hat {1:.5f} < 1.01".format(
+        seed, rhat))
+    ess = effective_sample_size(res.samples.double())
+    log("  seed {0}: ESS/s {1:.1f} (min ESS {2:.1f} over {3:.2f} s), "
+        "{4:.2f} leapfrogs per draw, step size {5:.4f}; on {6}".format(
+            seed, float(ess.min()) / seconds, float(ess.min()), seconds,
+            leaps, eps, card))
+
+
+def means_agree(runs):
+    """The two seeds' posterior means within 5 Monte Carlo standard
+    errors."""
+    import torch
+    from george_tpu_torch.samplers import effective_sample_size
+
+    means, ses = [], []
+    for res in runs:
+        s = res.samples.double().reshape(-1, res.samples.shape[-1])
+        ess = effective_sample_size(res.samples.double())
+        means.append(s.mean(0))
+        ses.append(s.std(0) / torch.sqrt(ess))
+    gap = (means[0] - means[1]).abs()
+    bound = 5.0 * torch.sqrt(ses[0] ** 2 + ses[1] ** 2)
+    check(bool(torch.all(gap <= bound)),
+          "posterior means {0} and {1} agree within 5 MC standard errors "
+          "(gap {2}, bound {3})".format(
+              means[0].cpu().numpy(), means[1].cpu().numpy(),
+              gap.cpu().numpy(), bound.cpu().numpy()))
+
+
+def run_chees(log_prob, z0, seeds, counter, dev, **opts):
+    """ChEES from each seed, the kernel's launch count set to 0 just before
+    each run and read just after: [(result, seconds, launches)]."""
+    import torch
+    from george_tpu_torch.samplers import run_mcmc
+
+    def progress(phase, done, total):
+        if done == total:
+            log("  {0} {1}/{2}".format(phase, done, total))
+
+    out = []
+    for seed in seeds:
+        counter.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = run_mcmc(log_prob, z0, seed, algorithm="chees",
+                       progress=progress, device=dev, **opts)
+        torch.cuda.synchronize()
+        out.append((res, time.time() - t0, counter.launches))
+    return out
+
+
 # -- the phases ----------------------------------------------------------------
 
 def run(dev, card):
     import torch
     import george_tpu_torch as george
     from george_tpu_torch import _build, kernels
-    from george_tpu_torch.ops import kalman
-    from george_tpu_torch.samplers import (build_gp_log_prob, run_mcmc,
-                                           effective_sample_size, split_rhat)
+    from george_tpu_torch.ops import dense, kalman
+    from george_tpu_torch.samplers import build_gp_log_prob
 
     t_run = time.time()
 
@@ -319,36 +598,78 @@ def run(dev, card):
             g.freeze_parameter("kernel:k1:log_constant")
         lp, _ = build_gp_log_prob(g, xz, yz, yerrz, device=dev)
         zoo_vgs[name] = (g, lp.kalman_vg)
-    labelled = [("main path", main_vg)] + [(name, v) for name, (_, v)
-                                           in zoo_vgs.items()]
-    defines = [vg.spec.defines(dt) for _, vg in labelled
-               for dt in (torch.float32, torch.float64)]
-    t0 = time.time()
-    libs = _build.build(kalman.SOURCE, defines)
-    build_s = time.time() - t0
-    log("  built {0} instantiations ({1} distinct) of {2} in {3:.2f} s "
-        "(parallel nvcc)".format(len(defines), len(set(libs)), kalman.SOURCE,
-                                 build_s))
-    for label, vg in labelled:
-        for dt in (torch.float32, torch.float64):
-            lines = [line for line in _build.ptxas_report(
-                kalman.SOURCE, vg.spec.defines(dt))
-                if "registers" in line or "spill" in line]
-            log("  ptxas {0} {1} NA={2}: {3}".format(
-                label, str(dt).split(".")[-1], len(vg.spec.active),
-                " | ".join(lines)))
 
-    # -- phase 2: kernel against the plain version --------------------------
-    phase("2: kernel against the plain version")
+    xd, yd, yerrd = config5_data()
+    gp5 = config5_gp(dev)
+    dense_lp, dense_theta0 = build_gp_log_prob(
+        gp5, xd, yd, yerrd, method="dense",
+        log_prior=bench_prior(gp5, dev, torch.float32), device=dev,
+        dtype=torch.float32)
+    check(dense_lp.engine == "cuda_dense",
+          "dense path engine is {0}".format(dense_lp.engine))
+    dense_main = dense_lp.dense_vg
+    check(dense_main.spec.d_full == 5 and
+          dense_main.spec.active == (0, 1, 2, 3, 4),
+          "dense path layout: D_full={0}, active={1}".format(
+              dense_main.spec.d_full, dense_main.spec.active))
+    dzoo = {}
+    for name, (make, kw, freeze, n) in dense_zoo().items():
+        g = george.GP(make(), device=dev, **kw)
+        if freeze:
+            g.freeze_parameter(freeze)
+        xz3, yz3, yerrz3 = config5_data(n, seed=11)
+        lp, _ = build_gp_log_prob(g, xz3, yz3, yerrz3, method="dense",
+                                  device=dev)
+        check(lp.engine == "cuda_dense", "dense zoo {0} engine is {1}".format(
+            name, lp.engine))
+        dzoo[name] = (g, lp)
+
+    def instances(labelled):
+        return [(label, dt, vg.spec.instance(dt)) for label, vg in labelled
+                for dt in (torch.float32, torch.float64)]
+
+    def report(built, seconds):
+        log("  built {0} instantiations in {1:.2f} s (parallel nvcc)".format(
+            len(built), seconds))
+        for label, dt, inst in built:
+            lines = [line for line in _build.ptxas_report(inst)
+                     if "registers" in line or "spill" in line]
+            log("  ptxas {0} {1}: {2}".format(
+                label, str(dt).split(".")[-1], " | ".join(lines)))
+
+    # The Kalman zoo's instantiations build in the background while the
+    # paths run (its 6-state case spills and takes minutes); phase 10 waits
+    # for them.
+    built = instances([("kalman main path", main_vg),
+                       ("dense path", dense_main)] +
+                      [("dense zoo " + name, lp.dense_vg)
+                       for name, (_, lp) in dzoo.items()])
+    keys = {inst.key() for _, _, inst in built}
+    zoo_built = [b for b in instances([("kalman zoo " + name, v)
+                                       for name, (_, v) in zoo_vgs.items()])
+                 if b[2].key() not in keys]
+    zoo_build = {}
+
+    def build_zoo():
+        t = time.time()
+        try:
+            _build.build_many([inst for _, _, inst in zoo_built])
+        except Exception as exc:  # reported by phase 10
+            zoo_build["error"] = exc
+        zoo_build["seconds"] = time.time() - t
+
+    zoo_thread = threading.Thread(target=build_zoo)
+    zoo_thread.start()
+    t0 = time.time()
+    _build.build_many([inst for _, _, inst in built])
+    report(built, time.time() - t0)
+
+    # -- phase 2: Kalman kernel against the plain version --------------------
+    phase("2: Kalman kernel against the plain version")
     theta_main = torch.as_tensor(
         full_thetas(gp, spec.active, 7, CHAINS, 0.1), device=dev)
     errs = compare(main_vg, theta_main,
                    "main path B={0} N={1}".format(CHAINS, N))
-    for name, (g, vg) in zoo_vgs.items():
-        th = torch.as_tensor(full_thetas(g, vg.spec.active, 11, ZOO_CHAINS,
-                                         0.2), device=dev)
-        compare(vg, th, "zoo {0} B={1} N=200 active={2}".format(
-            name, ZOO_CHAINS, vg.spec.active))
 
     # -- phase 3: exactness across methods ------------------------------------
     phase("3: exactness across methods (float64)")
@@ -356,15 +677,15 @@ def run(dev, card):
     lp64, theta64 = build_gp_log_prob(gp, x, y, yerr, log_prior=prior64,
                                       device=dev, dtype=torch.float64)
     gp.compute(x, yerr)
-    dense = float(gp.log_likelihood(y) + gp.log_prior()
-                  + float(prior64(theta64)))
+    dense_ll = float(gp.log_likelihood(y) + gp.log_prior()
+                     + float(prior64(theta64)))
     ss = float(lp64(theta64))
-    check(abs(ss - dense) <= 1e-10 * abs(dense),
+    check(abs(ss - dense_ll) <= 1e-10 * abs(dense_ll),
           "state-space log_prob {0!r} == dense {1!r} (rtol 1e-10)".format(
-              ss, dense))
+              ss, dense_ll))
     lp_k, g_k = lp64.batched_value_and_grad(theta64[None])
     g_dense = gp.grad_log_likelihood(y)
-    check(abs(float(lp_k[0]) - dense) <= 1e-10 * abs(dense) and
+    check(abs(float(lp_k[0]) - dense_ll) <= 1e-10 * abs(dense_ll) and
           np.allclose(g_k[0].cpu().numpy(), g_dense, rtol=1e-8, atol=1e-8),
           "float64 kernel value {0!r} and gradient {1} match the dense GP "
           "(rtol 1e-10 / 1e-8)".format(float(lp_k[0]), g_dense))
@@ -382,90 +703,15 @@ def run(dev, card):
     z0 = theta0 + 0.1 * torch.as_tensor(
         np.random.default_rng(0).standard_normal((CHAINS, len(theta0))),
         device=dev, dtype=theta0.dtype)
-
-    def progress(phase, done, total):
-        if done == total:
-            log("  {0} {1}/{2}".format(phase, done, total))
-
-    runs = []
-    for seed in (1, 2):
-        kalman.kalman_vg.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = run_mcmc(log_prob, z0, seed, algorithm="chees",
-                       num_warmup=WARMUP, num_samples=SAMPLES,
-                       num_leapfrog=MAX_LEAPFROG, block_size=BLOCK,
-                       warmup_block_size=BLOCK, progress=progress,
-                       device=dev)
-        torch.cuda.synchronize()
-        seconds = time.time() - t0
-        launches = kalman.kalman_vg.launches
-        runs.append((res, seconds, launches))
-        draw_leaps = int(res.n_leapfrog[0].sum())
-        check(launches == res.num_evaluations and
-              launches >= draw_leaps + WARMUP,
-              "seed {0}: kernel launches {1} == value+gradient calls {2} "
-              "(>= {3} draw leapfrogs + {4} warmup iterations)".format(
-                  seed, launches, res.num_evaluations, draw_leaps, WARMUP))
-        check(bool(torch.all(torch.isfinite(res.samples))),
-              "seed {0}: all {1} draws finite".format(
-                  seed, tuple(res.samples.shape)))
-        # Dual averaging holds the warmup's acceptance at the 0.651 target;
-        # the draws run at the averaged (smaller) step size and so accept
-        # more.  The draws, the step size and the trajectory length are held
-        # to the JAX package's run (REF_*): within 0.03 of its range of
-        # acceptance over seeds, 10% of its range of step sizes and 20% of
-        # its range of leapfrogs per draw, margins for 16384 chains against
-        # 512 and float32 against float64.
-        warm_acc = float(res.warmup_accept_prob[-TERM_BUFFER:].double()
-                         .mean())
-        check(abs(warm_acc - 0.651) <= 0.15,
-              "seed {0}: mean acceptance of the last {1} warmup iterations "
-              "{2:.4f} within 0.15 of 0.651".format(seed, TERM_BUFFER,
-                                                    warm_acc))
-        acc = float(res.accept_prob.double().mean())
-        lo, hi = REF_DRAWS_ACCEPT[0] - 0.03, REF_DRAWS_ACCEPT[1] + 0.03
-        check(lo <= acc <= hi,
-              "seed {0}: mean acceptance of the draws {1:.4f} in [{2:.4f}, "
-              "{3:.4f}] (JAX reference {4})".format(seed, acc, lo, hi,
-                                                   REF_DRAWS_ACCEPT))
-        eps = float(res.step_size)
-        lo, hi = 0.9 * REF_STEP_SIZE[0], 1.1 * REF_STEP_SIZE[1]
-        check(lo <= eps <= hi,
-              "seed {0}: step size {1:.4f} in [{2:.4f}, {3:.4f}] (JAX "
-              "reference {4})".format(seed, eps, lo, hi, REF_STEP_SIZE))
-        leaps = float(res.n_leapfrog.double().mean())
-        lo = 0.8 * REF_LEAPFROGS_PER_DRAW[0]
-        hi = 1.2 * REF_LEAPFROGS_PER_DRAW[1]
-        check(lo <= leaps <= hi,
-              "seed {0}: {1:.2f} leapfrogs per draw in [{2:.2f}, {3:.2f}] "
-              "(JAX reference {4})".format(seed, leaps, lo, hi,
-                                           REF_LEAPFROGS_PER_DRAW))
-        div = float(res.diverging.double().mean())
-        check(div < 0.01, "seed {0}: divergence fraction {1:.5f} < 0.01"
-              .format(seed, div))
-        rhat = float(split_rhat(res.samples.double()).max())
-        check(rhat < 1.01, "seed {0}: max split R-hat {1:.5f} < 1.01".format(
-            seed, rhat))
-        ess = effective_sample_size(res.samples.double())
-        log("  seed {0}: ESS/s {1:.1f} (min ESS {2:.1f} over {3:.2f} s), "
-            "{4:.2f} leapfrogs per draw, step size {5:.4f}; on {6}".format(
-                seed, float(ess.min()) / seconds, float(ess.min()), seconds,
-                leaps, eps, card))
-
-    means, ses = [], []
-    for res, _, _ in runs:
-        s = res.samples.double().reshape(-1, res.samples.shape[-1])
-        ess = effective_sample_size(res.samples.double())
-        means.append(s.mean(0))
-        ses.append(s.std(0) / torch.sqrt(ess))
-    gap = (means[0] - means[1]).abs()
-    bound = 5.0 * torch.sqrt(ses[0] ** 2 + ses[1] ** 2)
-    check(bool(torch.all(gap <= bound)),
-          "posterior means {0} and {1} agree within 5 MC standard errors "
-          "(gap {2}, bound {3})".format(
-              means[0].cpu().numpy(), means[1].cpu().numpy(),
-              gap.cpu().numpy(), bound.cpu().numpy()))
+    runs = run_chees(log_prob, z0, (1, 2), kalman.kalman_vg, dev,
+                     num_warmup=WARMUP, num_samples=SAMPLES,
+                     num_leapfrog=MAX_LEAPFROG, block_size=BLOCK,
+                     warmup_block_size=BLOCK)
+    for seed, (res, seconds, launches) in zip((1, 2), runs):
+        chees_gates(res, seconds, launches, WARMUP, REF_DRAWS_ACCEPT,
+                    REF_STEP_SIZE, REF_LEAPFROGS_PER_DRAW, seed, card)
+    means_agree([r[0] for r in runs])
+    main_launches = runs[0][2]
 
     final = runs[0][0].samples[:, -1].double()
     th_final = torch.as_tensor(np.tile(gp.get_parameter_vector(
@@ -479,30 +725,29 @@ def run(dev, card):
     compare(main_vg, th_final, "final chain positions B={0}".format(CHAINS),
             float32_like_plain=True)
 
-    # -- phase 5: timing ------------------------------------------------------------
-    phase("5: timing at B={0}, N={1} (CUDA events)".format(CHAINS, N))
+    # -- phase 5: Kalman timing -------------------------------------------------
+    phase("5: Kalman timing at B={0}, N={1} (CUDA events)".format(CHAINS, N))
     th32 = theta_main.float().contiguous()
     ms, ms_min = median_ms(lambda: main_vg(th32), reps=50)
     plain_ms, plain_min = median_ms(
         lambda: kalman.kalman_vg_torch(spec, th32, *main_vg.series(th32)),
-        reps=20, warmup=1)
+        reps=5, warmup=1)
     bound_ms, bound_by = kalman_bound(spec, CHAINS, N)
     log("  kernel float32: median {0:.4f} ms (min {1:.4f}) over 50 launches"
         .format(ms, ms_min))
-    log("  plain version float32: median {0:.2f} ms (min {1:.2f}) over 20 "
+    log("  plain version float32: median {0:.2f} ms (min {1:.2f}) over 5 "
         "calls".format(plain_ms, plain_min))
     log("  bound {0:.4f} ms, set by {1} ({2} primal operations per step x "
         "(1 + {3} tangents), FP32 peak {4:.0f} TFLOP/s, HBM {5} TB/s); "
         "kernel at {6:.1%} of the bound; library call: none; on {7}".format(
             bound_ms, bound_by, step_ops(spec.terms), len(spec.active),
             PEAK_FP32 / 1e12, PEAK_BYTES / 1e12, bound_ms / ms, card))
-
-    return [{
+    kernels_line = [{
         "name": "kalman_vg",
         "route": "cuda",
         "source": "george_tpu_torch/csrc/kalman_vg.cu",
         "replaces": "george_tpu/ops/pallas_kalman.py:66",
-        "launches": runs[0][2],
+        "launches": main_launches,
         "max_abs_err": errs[torch.float32],
         "ms": ms,
         "plain_ms": plain_ms,
@@ -510,6 +755,195 @@ def run(dev, card):
         "bound_by": bound_by,
         "library_ms": None,
     }]
+
+    # -- phase 6: dense kernel against the plain version ------------------------
+    phase("6: dense kernel against the plain version")
+    theta_dense = torch.as_tensor(full_thetas(
+        gp5, dense_main.spec.active, 13, DENSE_CHAINS, 0.2), device=dev)
+    dense_err = compare_dense(dense_main, theta_dense, "dense path B={0} "
+                              "N={1}".format(DENSE_CHAINS, DENSE_N))
+    for n in (136, 256):
+        xe, ye, yerre = config5_data(n)
+        lp_e, _ = build_gp_log_prob(gp5, xe, ye, yerre, method="dense",
+                                    device=dev)
+        vg_e = lp_e.dense_vg
+        check(lp_e.engine == "cuda_dense" and vg_e.spec == dense_main.spec,
+              "N={0}: engine {1}, the dense path's instantiation".format(
+                  n, lp_e.engine))
+        th = torch.as_tensor(full_thetas(gp5, vg_e.spec.active, 17, 512,
+                                         0.2), device=dev)
+        compare_dense(vg_e, th, "config #5 B=512 N={0}".format(n))
+    for name, (g, lp) in dzoo.items():
+        vg = lp.dense_vg
+        th = full_thetas(g, vg.spec.active, 19, ZOO_CHAINS, 0.15)
+        # Two rejected points: a log amplitude of 1000 overflows, so the
+        # factorization fails (inf / inf), and a metric parameter out of
+        # bounds (where the metric is bounded).
+        n_scalar = vg.spec.n_mean + vg.spec.n_wn
+        th[0, n_scalar] = 1000.0
+        th[1, -1] = 1e3
+        th = torch.as_tensor(th, device=dev)
+        compare_dense(vg, th, "dense zoo {0} B={1} N={2} active={3}".format(
+            name, ZOO_CHAINS, len(vg.data(th)[1]), vg.spec.active))
+        if n_scalar not in vg.spec.active:
+            continue
+        unfrozen = torch.as_tensor(np.flatnonzero(g.unfrozen_mask),
+                                   device=dev)
+        lp_b, g_b = lp.batched_value_and_grad(th[:3, unfrozen].float())
+        torch.cuda.synchronize()
+        bounded = g.get_parameter_bounds(include_frozen=True)[-1][1] \
+            is not None
+        check(bool(torch.isneginf(lp_b[0])) and
+              bool(torch.all(g_b[0] == 0)) and
+              bool(torch.isneginf(lp_b[1])) == bounded and
+              bool(torch.all(g_b[1] == 0)) == bounded and
+              bool(torch.isfinite(lp_b[2])),
+              "dense zoo {0}: the failed factorization reads -inf with a "
+              "zero gradient{1}".format(
+                  name, ", and so does the out-of-bounds point" if bounded
+                  else ""))
+
+    # -- phase 7: the dense path -------------------------------------------------
+    phase("7: the dense path, ChEES over {0} chains".format(DENSE_CHAINS))
+    zd = dense_theta0 + 0.1 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal(
+            (DENSE_CHAINS, len(dense_theta0))), device=dev,
+        dtype=dense_theta0.dtype)
+    druns = run_chees(dense_lp, zd, (1, 2), dense.dense_vg, dev,
+                      num_warmup=WARMUP, num_samples=DENSE_SAMPLES,
+                      num_leapfrog=DENSE_MAX_LEAPFROG, block_size=BLOCK,
+                      warmup_block_size=BLOCK)
+    for seed, (res, seconds, launches) in zip((1, 2), druns):
+        chees_gates(res, seconds, launches, WARMUP, REF_DENSE_ACCEPT,
+                    REF_DENSE_STEP_SIZE, REF_DENSE_LEAPFROGS_PER_DRAW, seed,
+                    card)
+    means_agree([r[0] for r in druns])
+    dense_launches = druns[0][2]
+
+    # -- phase 8: the long series ---------------------------------------------
+    phase("8: the long series, N={0}".format(LONG_N))
+    xl, yl, yerrl = stream_data()
+    gpl = main_gp(dev)
+    long_lp, long_theta0 = build_gp_log_prob(
+        gpl, xl, yl, yerrl, log_prior=bench_prior(gpl, dev, torch.float32),
+        device=dev, dtype=torch.float32)
+    check(long_lp.engine == "cuda_kalman" and
+          long_lp.kalman_vg.spec == spec,
+          "N={0}: engine {1}, the main path's instantiation".format(
+              LONG_N, long_lp.engine))
+    long_vg = long_lp.kalman_vg
+    th_long = torch.as_tensor(full_thetas(gpl, spec.active, 23, LONG_CHAINS,
+                                          0.1), device=dev)
+    l64, g64 = long_vg(th_long)
+    l32, g32 = long_vg(th_long.float())
+    torch.cuda.synchronize()
+    l32, g32 = l32.double(), g32.double()
+    long_err = max(float((l32 - l64).abs().max()),
+                   float((g32 - g64).abs().max()))
+    check(bool(torch.all(torch.isfinite(l32))) and
+          within_reference_tolerance(l32, g32, l64, g64),
+          "N={0} B={1}: float32 kernel against float64 kernel, max |ll err| "
+          "{2:.3e}, max |grad err| {3:.3e} (|ll| up to {4:.4g})".format(
+              LONG_N, LONG_CHAINS, float((l32 - l64).abs().max()),
+              float((g32 - g64).abs().max()), float(l64.abs().max())))
+    xc, yc, yerrc = stream_data(LONG_CHECK_N, seed=1)
+    lp_c, _ = build_gp_log_prob(gpl, xc, yc, yerrc, device=dev)
+    vg_c = lp_c.kalman_vg
+    th_c = torch.as_tensor(full_thetas(gpl, spec.active, 29,
+                                       LONG_CHECK_CHAINS, 0.1), device=dev)
+    lk, gk = vg_c(th_c)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lr, gr = kalman.kalman_vg_torch(vg_c.spec, th_c, *vg_c.series(th_c))
+    torch.cuda.synchronize()
+    long_plain_ms = 1e3 * (time.time() - t0)
+    check(bool(torch.all((lk - lr).abs() <= 1e-9 * lr.abs())) and
+          bool(torch.all((gk - gr).abs() <= 1e-9 * gr.abs() + 1e-9)),
+          "N={0} B={1}: float64 kernel against the plain version ({2:.1f} "
+          "s), max |ll err| {3:.3e}, max |grad err| {4:.3e}".format(
+              LONG_CHECK_N, LONG_CHECK_CHAINS, long_plain_ms / 1e3,
+              float((lk - lr).abs().max()), float((gk - gr).abs().max())))
+    zl = long_theta0 + 0.1 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal(
+            (LONG_CHAINS, len(long_theta0))), device=dev,
+        dtype=long_theta0.dtype)
+    (lres, lsec, long_launches), = run_chees(
+        long_lp, zl, (1,), kalman.kalman_vg, dev, num_warmup=20,
+        num_samples=20, num_leapfrog=16, block_size=10, warmup_block_size=10)
+    check(long_launches == lres.num_evaluations and long_launches >= 40 and
+          bool(torch.all(torch.isfinite(lres.samples))),
+          "N={0}: a 20 + 20 iteration ChEES run over {1} chains, {2} kernel "
+          "launches == value+gradient calls {3}, draws finite, in {4:.2f} s"
+          .format(LONG_N, LONG_CHAINS, long_launches, lres.num_evaluations,
+                  lsec))
+
+    # -- phase 9: dense and long-series timing ------------------------------------
+    phase("9: timing of the dense kernel and the long series (CUDA events)")
+    td32 = theta_dense.float().contiguous()
+    d_ms, d_min = median_ms(lambda: dense_main(td32), reps=30)
+    d_plain, d_plain_min = median_ms(
+        lambda: dense.dense_vg_torch(dense_main.spec, td32,
+                                     *dense_main.data(td32)),
+        reps=5, warmup=1)
+    d_bound, d_by = dense_bound(dense_main.spec, DENSE_CHAINS, DENSE_N, 3)
+    log("  dense kernel float32 B={0} N={1}: median {2:.4f} ms (min {3:.4f}) "
+        "over 30 launches; plain version {4:.2f} ms (min {5:.2f}) over 5 "
+        "calls; bound {6:.4f} ms set by {7} ({8:.4g} operations per chain); "
+        "kernel at {9:.1%} of the bound; library call: none; on {10}".format(
+            DENSE_CHAINS, DENSE_N, d_ms, d_min, d_plain, d_plain_min, d_bound,
+            d_by, dense_ops(dense_main.spec, DENSE_N), d_bound / d_ms, card))
+    # The plain version's time is its one call of phase 8 (float64, B=2,
+    # N=32769): a call at B=1024 and N=100,000 would take minutes and tens
+    # of GB of autograd tape.
+    tl32 = th_long.float().contiguous()
+    l_ms, l_min = median_ms(lambda: long_vg(tl32), reps=10)
+    l_plain = long_plain_ms
+    l_bound, l_by = kalman_bound(spec, LONG_CHAINS, LONG_N)
+    log("  Kalman kernel float32 B={0} N={1}: median {2:.4f} ms (min "
+        "{3:.4f}) over 10 launches; bound {4:.4f} ms set by {5}; kernel at "
+        "{6:.1%} of the bound; plain version {7:.1f} ms (one float64 call at "
+        "B={8}, N={9}, phase 8); library call: none; on {10}".format(
+            LONG_CHAINS, LONG_N, l_ms, l_min, l_bound, l_by, l_bound / l_ms,
+            l_plain, LONG_CHECK_CHAINS, LONG_CHECK_N, card))
+
+    # -- phase 10: the Kalman zoo ---------------------------------------------
+    phase("10: the Kalman zoo against the plain version")
+    zoo_thread.join()
+    if "error" in zoo_build:
+        raise Failure("Kalman zoo build: {0}".format(zoo_build["error"]))
+    report(zoo_built, zoo_build["seconds"])
+    for name, (g, vg) in zoo_vgs.items():
+        th = torch.as_tensor(full_thetas(g, vg.spec.active, 11, ZOO_CHAINS,
+                                         0.2), device=dev)
+        compare(vg, th, "zoo {0} B={1} N=200 active={2}".format(
+            name, ZOO_CHAINS, vg.spec.active))
+
+    kernels_line += [{
+        "name": "kalman_vg (streaming, N > 32768)",
+        "route": "cuda",
+        "source": "george_tpu_torch/csrc/kalman_vg.cu",
+        "replaces": "george_tpu/ops/pallas_kalman.py:162",
+        "launches": long_launches,
+        "max_abs_err": long_err,
+        "ms": l_ms,
+        "plain_ms": l_plain,
+        "bound_ms": l_bound,
+        "bound_by": l_by,
+        "library_ms": None,
+    }, {
+        "name": "dense_vg",
+        "route": "cuda",
+        "source": "george_tpu_torch/csrc/dense_vg.cu",
+        "replaces": "george_tpu/ops/pallas_dense.py:420",
+        "launches": dense_launches,
+        "max_abs_err": dense_err,
+        "ms": d_ms,
+        "plain_ms": d_plain,
+        "bound_ms": d_bound,
+        "bound_by": d_by,
+        "library_ms": None,
+    }]
+    return kernels_line
 
 
 def main():

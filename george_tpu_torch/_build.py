@@ -2,27 +2,48 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them by ctypes.
 
 Each kernel source under ``csrc/`` has a plain C interface.  One shared
-library is built per instantiation (a set of ``-D`` macros), at first use,
-into the build directory, named by a hash of the source text and the full
-flag list, so a changed source or flag set never loads a stale library.
-Builds of several instantiations run in parallel (one ``nvcc`` each, all
-started together).  Nothing here runs at import time.
+library is built per instantiation, at first use, into the build directory.
+An instantiation is a source, a set of ``-D`` macros and, for a kernel that
+includes generated code (the dense kernel's tree, ``dsl/cuda_codegen.py``),
+the text of the generated headers: they are written beside the library and
+put on the include path.  The library is named by a hash of the source, the
+shared headers of ``csrc/``, the generated text and the full flag list, so a
+changed source, header, tree or flag set never loads a stale library, and
+two trees never share one.  Builds of several instantiations run in
+parallel (one ``nvcc`` each, all started together).  Nothing here runs at
+import time.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
-__all__ = ["build_dir", "build", "load", "ptxas_report"]
+__all__ = ["Instance", "build_dir", "build_many", "load", "ptxas_report"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-          "-Xptxas", "-v"]
+          "-Xptxas", "-v", "-I", _CSRC]
 
 _LOADED = {}
+
+
+class Instance(object):
+    """One instantiation: ``source`` (a file of ``csrc/``), its ``-D``
+    macros and its generated headers (``{file name: text}``)."""
+
+    def __init__(self, source, defines, headers=None):
+        self.source = source
+        self.defines = dict(defines)
+        self.headers = dict(headers or {})
+
+    def key(self):
+        return (self.source, tuple(sorted(self.defines.items())),
+                tuple(sorted(self.headers.items())))
 
 
 def build_dir():
@@ -40,36 +61,46 @@ def _nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _key(source, defines):
-    return (source, tuple(sorted(defines.items())))
-
-
-def _paths(source, defines):
-    src = os.path.join(_CSRC, source)
-    with open(src, "rb") as f:
-        text = f.read()
+def _paths(inst):
+    """(source path, flags, library, log, generated-header directory)."""
+    src = os.path.join(_CSRC, inst.source)
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    for name, text in sorted(inst.headers.items()):
+        h.update(b"\0" + name.encode() + b"\0" + text.encode())
     flags = _ARCH + _FLAGS + ["-D{0}={1}".format(k, v)
-                              for k, v in sorted(defines.items())]
-    digest = hashlib.sha256(text + "\0".join(flags).encode()).hexdigest()
+                              for k, v in sorted(inst.defines.items())]
+    h.update("\0".join(flags).encode())
     stem = os.path.join(build_dir(), "{0}_{1}".format(
-        os.path.splitext(source)[0], digest[:16]))
-    return src, flags, stem + ".so", stem + ".log"
+        os.path.splitext(inst.source)[0], h.hexdigest()[:16]))
+    gen = stem + "_gen"
+    if inst.headers:
+        flags = flags + ["-I", gen]
+    return src, flags, stem + ".so", stem + ".log", gen
 
 
-def build(source, defines_list):
-    """Build every instantiation of ``source`` not yet on disk, in parallel.
+def build_many(instances):
+    """Build every instantiation not yet on disk, all in parallel.
 
-    :param defines_list: iterable of dicts of ``-D`` macros.
     :returns: the list of library paths, in order.
     """
     os.makedirs(build_dir(), exist_ok=True)
     jobs, libs = [], []
-    for defines in defines_list:
-        src, flags, lib, log = _paths(source, defines)
+    for inst in instances:
+        src, flags, lib, log, gen = _paths(inst)
         libs.append(lib)
         if os.path.exists(lib) or any(j[1] == lib for j in jobs):
             continue
-        tmp = "{0}.tmp{1}".format(lib, os.getpid())
+        if inst.headers:
+            os.makedirs(gen, exist_ok=True)
+            for name, text in inst.headers.items():
+                with open(os.path.join(gen, name), "w") as f:
+                    f.write(text)
+        # Unique per process and thread: concurrent builds of one library
+        # each write their own file, and the last rename wins.
+        tmp = "{0}.tmp{1}_{2}".format(lib, os.getpid(), threading.get_ident())
         cmd = [_nvcc()] + flags + ["-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
@@ -89,21 +120,21 @@ def build(source, defines_list):
     return libs
 
 
-def load(source, defines):
-    """The loaded library of one instantiation (built on first use)."""
-    key = _key(source, defines)
+def load(inst):
+    """The loaded library of one :class:`Instance` (built on first use)."""
+    key = inst.key()
     lib = _LOADED.get(key)
     if lib is None:
-        path = build(source, [defines])[0]
+        path = build_many([inst])[0]
         lib = ctypes.CDLL(path)
         _LOADED[key] = lib
     return lib
 
 
-def ptxas_report(source, defines):
+def ptxas_report(inst):
     """The ``-Xptxas -v`` lines (registers, shared memory, spills) of a
-    built instantiation."""
-    _, _, _, log = _paths(source, defines)
+    built :class:`Instance`."""
+    log = _paths(inst)[3]
     with open(log, errors="replace") as f:
         return [line.strip() for line in f
                 if "ptxas info" in line or "bytes stack frame" in line]

@@ -1,0 +1,30 @@
+# -*- coding: utf-8 -*-
+"""Global knobs of the dense sampler route (the JAX package's
+``config.py``, the subset this route reads, with the same names and
+defaults)."""
+
+__all__ = ["pallas_dense", "dense_mxu_min_n", "dense_mxu_sampling",
+           "engine_log"]
+
+# The fused batched dense value+gradient engine for posteriors without a
+# state-space form (``ops/dense.py``: the CUDA kernel for tensors on the
+# card, its plain PyTorch version for tensors on the CPU):
+#   "auto"  — attach it where it applies (N <= 256, metric types 0/1);
+#   "never" — the plain dense density with autograd gradients only.
+# (The JAX package's "always" ran its Pallas kernel in interpret mode on a
+# CPU; the CPU here always takes the plain version.)
+pallas_dense = "auto"
+
+# N at and above which the JAX package's router prefers its MXU hybrid
+# (``dense_mxu``) over the lanes kernel, when ``dense_mxu_sampling`` opts
+# in.  That engine is not ported yet (ROADMAP Queue B 3): on the card such
+# a route raises, on the CPU it takes the plain dense density.
+dense_mxu_min_n = 129
+
+# Whether the sampler router may pick the MXU hybrid at all (opt-in in the
+# JAX package after its posterior-fidelity finding).
+dense_mxu_sampling = False
+
+# Emit a one-line warning (logging.getLogger("george_tpu_torch")) when a
+# posterior falls out of a fused engine's envelope onto the plain route.
+engine_log = True

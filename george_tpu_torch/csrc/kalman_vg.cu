@@ -1,7 +1,12 @@
 // Fused Kalman-filter log-likelihood with its gradient, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel george_tpu/ops/pallas_kalman.py::_kernel_builder
-// (launched through make_kalman_vg, pl.pallas_call): the whole N-step
+// Replaces both TPU kernels of george_tpu/ops/pallas_kalman.py (launched
+// through make_kalman_vg, pl.pallas_call): _kernel_builder, which keeps the
+// series in SMEM up to N = 32768, and _kernel_builder_streaming, which
+// streams longer series (up to N = 2^22) from HBM through a double-buffered
+// window by async DMA.  Here one kernel plays both roles for every N up to
+// 2^22: the series always streams from device memory through a
+// double-buffered shared-memory window filled by cp.async.  The whole N-step
 // filter of a sum of Markovian GP terms runs in one program, stationary
 // init, then per step a closed-form predict (Phi, Q per gap) and a
 // Joseph-form observe.  It returns ll per chain and the derivative of ll
@@ -17,8 +22,9 @@
 // D x D state and its NA tangents in registers (the term list, the state
 // dimension and NA are compile-time, so every small loop unrolls and the
 // block-diagonal structure of Phi folds away), and the shared series staged
-// through shared memory in chunks, since every thread of a block reads the
-// same element at the same step.  Occupancy is whatever B gives (B = 16384
+// through shared memory in chunks of KV_CHUNK steps, since every thread of a
+// block reads the same element at the same step; the copy of the next chunk
+// overlaps the steps of the current one.  Occupancy is whatever B gives (B = 16384
 // is 128 blocks of 128 threads); filling the card better is later work.
 //
 // Compile-time configuration (nvcc -D):
@@ -37,10 +43,12 @@
 // prod(naxes * exp(theta[index])); its rate is c_p exp(-theta[rate] / 2)
 // (materns) or 2 pi / exp(theta[rate]) (cosine).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <type_traits>
+
+#include "dual.cuh"
 
 #ifndef KV_T
 #error "define KV_T (float or double)"
@@ -57,155 +65,9 @@
 
 namespace kv {
 
-// ---------------------------------------------------------------------------
-// Dual numbers: a value and NA tangents.
-// ---------------------------------------------------------------------------
+using namespace gt;  // Dual<T, NA>, constant, exp / log / sin / cos
 
-template <typename T, int NA>
-struct Dual {
-  T v;
-  T d[NA > 0 ? NA : 1];
-};
-
-#define KV_HD __device__ __forceinline__
-#define KV_DUAL template <typename T, int NA> KV_HD Dual<T, NA>
-#define KV_DUAL_S                                                         \
-  template <typename T, int NA, typename S,                               \
-            typename = typename std::enable_if<std::is_arithmetic<S>::value>::type> \
-  KV_HD Dual<T, NA>
-
-// The global math functions (kv::exp etc. below would hide them).
-KV_HD float kexp(float x) { return ::expf(x); }
-KV_HD double kexp(double x) { return ::exp(x); }
-KV_HD float klog(float x) { return ::logf(x); }
-KV_HD double klog(double x) { return ::log(x); }
-KV_HD float ksin(float x) { return ::sinf(x); }
-KV_HD double ksin(double x) { return ::sin(x); }
-KV_HD float kcos(float x) { return ::cosf(x); }
-KV_HD double kcos(double x) { return ::cos(x); }
-
-template <typename T, int NA>
-KV_HD Dual<T, NA> constant(T v) {
-  Dual<T, NA> r;
-  r.v = v;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = T(0);
-  return r;
-}
-
-KV_DUAL operator+(const Dual<T, NA>& a, const Dual<T, NA>& b) {
-  Dual<T, NA> r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] + b.d[j];
-  return r;
-}
-
-KV_DUAL operator-(const Dual<T, NA>& a, const Dual<T, NA>& b) {
-  Dual<T, NA> r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] - b.d[j];
-  return r;
-}
-
-KV_DUAL operator-(const Dual<T, NA>& a) {
-  Dual<T, NA> r;
-  r.v = -a.v;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = -a.d[j];
-  return r;
-}
-
-KV_DUAL operator*(const Dual<T, NA>& a, const Dual<T, NA>& b) {
-  Dual<T, NA> r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] * b.v + a.v * b.d[j];
-  return r;
-}
-
-KV_DUAL operator/(const Dual<T, NA>& a, const Dual<T, NA>& b) {
-  Dual<T, NA> r;
-  r.v = a.v / b.v;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = (a.d[j] - r.v * b.d[j]) / b.v;
-  return r;
-}
-
-// Mixed dual / scalar arithmetic (the scalar carries no tangent).
-KV_DUAL_S operator+(const Dual<T, NA>& a, S s) {
-  Dual<T, NA> r = a;
-  r.v = a.v + T(s);
-  return r;
-}
-KV_DUAL_S operator+(S s, const Dual<T, NA>& a) { return a + s; }
-KV_DUAL_S operator-(const Dual<T, NA>& a, S s) {
-  Dual<T, NA> r = a;
-  r.v = a.v - T(s);
-  return r;
-}
-KV_DUAL_S operator-(S s, const Dual<T, NA>& a) {
-  Dual<T, NA> r = -a;
-  r.v = T(s) - a.v;
-  return r;
-}
-KV_DUAL_S operator*(const Dual<T, NA>& a, S s) {
-  Dual<T, NA> r;
-  r.v = a.v * T(s);
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] * T(s);
-  return r;
-}
-KV_DUAL_S operator*(S s, const Dual<T, NA>& a) { return a * s; }
-KV_DUAL_S operator/(const Dual<T, NA>& a, S s) {
-  Dual<T, NA> r;
-  r.v = a.v / T(s);
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] / T(s);
-  return r;
-}
-KV_DUAL_S operator/(S s, const Dual<T, NA>& a) {
-  Dual<T, NA> r;
-  r.v = T(s) / a.v;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = -r.v * a.d[j] / a.v;
-  return r;
-}
-
-KV_DUAL exp(const Dual<T, NA>& a) {
-  Dual<T, NA> r;
-  r.v = kexp(a.v);
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] * r.v;
-  return r;
-}
-
-KV_DUAL log(const Dual<T, NA>& a) {
-  Dual<T, NA> r;
-  r.v = klog(a.v);
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] / a.v;
-  return r;
-}
-
-KV_DUAL sin(const Dual<T, NA>& a) {
-  Dual<T, NA> r;
-  r.v = ksin(a.v);
-  const T c = kcos(a.v);
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = a.d[j] * c;
-  return r;
-}
-
-KV_DUAL cos(const Dual<T, NA>& a) {
-  Dual<T, NA> r;
-  r.v = kcos(a.v);
-  const T s = ksin(a.v);
-#pragma unroll
-  for (int j = 0; j < NA; ++j) r.d[j] = -a.d[j] * s;
-  return r;
-}
+#define KV_HD GT_HD
 
 // ---------------------------------------------------------------------------
 // Compile-time layout of the state.  Every call below has constant
@@ -487,14 +349,29 @@ KV_HD void observe(DT (&m)[D], DT (&P)[D][D], const DT& r, const DT& v,
   acc = acc - 0.5 * (log(6.283185307179586 * S) + innov * innov * inv);
 }
 
+// Issue the asynchronous copy of the chunk of steps [base, base + KV_CHUNK)
+// (gaps dt[base - 1 + i], observations y / v[base + i]) into shared memory,
+// one element per thread and iteration, as one cp.async batch.
+KV_HD void stage(const T* __restrict__ dt, const T* __restrict__ y,
+                 const T* __restrict__ v, int base, int n, T* s_dt, T* s_y,
+                 T* s_v) {
+  const int cnt = min(KV_CHUNK, n - base);
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    __pipeline_memcpy_async(s_dt + i, dt + base - 1 + i, sizeof(T));
+    __pipeline_memcpy_async(s_y + i, y + base + i, sizeof(T));
+    __pipeline_memcpy_async(s_v + i, v + base + i, sizeof(T));
+  }
+  __pipeline_commit();
+}
+
 __global__ void __launch_bounds__(KV_THREADS)
 kalman_vg_kernel(const T* __restrict__ theta, const T* __restrict__ dt,
                  const T* __restrict__ y, const T* __restrict__ v,
                  const int* __restrict__ meta, T* __restrict__ ll,
                  T* __restrict__ jac, int B, int n, int d_full) {
-  __shared__ T s_dt[KV_CHUNK];
-  __shared__ T s_y[KV_CHUNK];
-  __shared__ T s_v[KV_CHUNK];
+  __shared__ __align__(16) T s_dt[2][KV_CHUNK];
+  __shared__ __align__(16) T s_y[2][KV_CHUNK];
+  __shared__ __align__(16) T s_v[2][KV_CHUNK];
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = b < B;
@@ -560,22 +437,33 @@ kalman_vg_kernel(const T* __restrict__ theta, const T* __restrict__ dt,
   // Step 0 observes the stationary prior directly.
   observe(m, P, y[0] - mu, v[0] + vwn, acc);
 
-  for (int base = 1; base < n; base += KV_CHUNK) {
+  // The series streams through a double-buffered shared-memory window:
+  // the copy of chunk c + 1 (cp.async) is in flight while the steps of
+  // chunk c run, and is waited for before they read it.
+  const int n_chunks = (n - 1 + KV_CHUNK - 1) / KV_CHUNK;
+  if (n_chunks > 0) stage(dt, y, v, 1, n, s_dt[0], s_y[0], s_v[0]);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int base = 1 + c * KV_CHUNK;
     const int cnt = min(KV_CHUNK, n - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-      s_dt[i] = dt[base - 1 + i];
-      s_y[i] = y[base + i];
-      s_v[i] = v[base + i];
+    const int buf = c & 1;
+    if (c + 1 < n_chunks) {
+      stage(dt, y, v, base + KV_CHUNK, n, s_dt[buf ^ 1], s_y[buf ^ 1],
+            s_v[buf ^ 1]);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
     }
     __syncthreads();
     for (int i = 0; i < cnt; ++i) {
       DT Phi[D][D];
       DT Q[D][D];
-      transition(rate, Pinf, s_dt[i], Phi, Q);
+      transition(rate, Pinf, s_dt[buf][i], Phi, Q);
       predict(Phi, Q, m, P);
-      observe(m, P, s_y[i] - mu, s_v[i] + vwn, acc);
+      observe(m, P, s_y[buf][i] - mu, s_v[buf][i] + vwn, acc);
     }
+    // Every thread is done with this buffer before the next iteration
+    // stages chunk c + 2 into it.
+    __syncthreads();
   }
 
   if (live) {

@@ -122,7 +122,10 @@ def _radial_fn(name, constants):
     The value is evaluated at a detached ``r2`` (parameter gradients by
     autograd, smooth everywhere); the r2 gradient enters through a
     zero-valued first-order term carrying the closed-form derivative, which
-    is finite at r2 = 0.
+    is finite at r2 = 0.  The term is added whenever autograd records, not
+    only when ``r2.requires_grad`` says so: under ``torch.func.vmap`` that
+    flag reads False on the batched ``r2`` even when the metric parameters
+    require gradients.
     """
     spec = available_kernels()[name]
     consts = dict(constants)
@@ -132,7 +135,7 @@ def _radial_fn(name, constants):
     def radial(p, r2):
         r2_const = r2.detach()
         out = value(p, r2_const)
-        if r2.requires_grad:
+        if torch.is_grad_enabled():
             slope = grad_r2(p.detach(), r2_const)
             out = out + slope * (r2 - r2_const)
         return out

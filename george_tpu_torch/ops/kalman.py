@@ -14,7 +14,9 @@ Two implementations of that one function live here:
 
   * :func:`kalman_vg` — the hand-written CUDA kernel (``csrc/kalman_vg.cu``),
     one chain per thread, the filter state and its forward-mode tangents in
-    registers.  Its ``launches`` attribute counts kernel launches.
+    registers, the series streamed through shared memory for every N up to
+    :data:`MAX_N` (the reference's SMEM-resident and streaming kernels in
+    one).  Its ``launches`` attribute counts kernel launches.
   * :func:`kalman_vg_torch` — the plain PyTorch version: the batched filter
     of :mod:`george_tpu_torch.ops.state_space` with the gradient from
     ``torch.autograd``.
@@ -38,9 +40,11 @@ from .state_space import FAMILY_CODES, Term, extract_terms, kalman_loglike
 __all__ = ["MAX_N", "KalmanSpec", "KalmanVG", "make_kalman_vg", "kalman_vg",
            "kalman_vg_torch"]
 
-# The reference kernel keeps the whole series in SMEM up to this length
-# (its _SMEM_N); longer series need the streaming variant, not yet ported.
-MAX_N = 32768
+# The reference's longest series (pallas_kalman.MAX_N).  Its kernel keeps
+# the series in SMEM up to 32768 steps and streams longer ones from HBM; the
+# CUDA kernel streams every series through a double-buffered shared-memory
+# window, so one kernel covers the whole range.
+MAX_N = 1 << 22
 # The kernel's term list is a decimal literal of one digit per term after a
 # leading 1 (csrc/kalman_vg.cu, KV_FAMS), which a 64-bit integer holds.
 MAX_TERMS = 17
@@ -73,6 +77,10 @@ class KalmanSpec:
                                      for t in self.terms),
         }
 
+    def instance(self, dtype):
+        """The kernel instantiation for ``dtype`` (:class:`_build.Instance`)."""
+        return _build.Instance(SOURCE, self.defines(dtype))
+
     def meta(self):
         """The kernel's runtime description (see ``csrc/kalman_vg.cu``)."""
         off = self.n_mean + self.n_wn
@@ -90,7 +98,7 @@ def _meta_tensor(spec, device):
 
 
 def _library(spec, dtype):
-    lib = _build.load(SOURCE, spec.defines(dtype))
+    lib = _build.load(spec.instance(dtype))
     if not getattr(lib, "_kv_checked", False):
         lib.kalman_vg_launch.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

@@ -2,10 +2,11 @@
 """GP hyperparameter posterior densities for the sampler layer.
 
 :func:`build_gp_log_prob` turns a :class:`george_tpu_torch.GP` and a
-dataset into a batched, differentiable ``log_prob(theta_active)`` and, on
-the state-space route, attaches ``log_prob.batched_value_and_grad``: the
-fused Kalman value+gradient (the CUDA kernel for tensors on the card, its
-plain PyTorch version for tensors on the CPU) wrapped with the bounds
+dataset into a batched, differentiable ``log_prob(theta_active)`` and, where
+a fused engine applies, attaches ``log_prob.batched_value_and_grad``: on the
+state-space route the fused Kalman value+gradient, on the dense route the
+fused dense value+gradient (each the CUDA kernel for tensors on the card,
+its plain PyTorch version for tensors on the CPU), wrapped with the bounds
 prior, the NaN guards and the optional extra prior — the exact semantics of
 ``vmap(value_and_grad(log_prob))``.
 """
@@ -15,16 +16,19 @@ import logging
 import numpy as np
 import torch
 
+from .. import config
 from .._device import resolve_device
 from ..modeling import CallableModel, ConstantModel
-from ..ops import kalman
+from ..ops import dense, kalman
 from ..ops import state_space as sskf
 
 __all__ = ["build_gp_log_prob", "traceable_model_fn"]
 
+# The JAX package's MXU hybrid takes dense posteriors up to this N
+# (dense_mxu.MXU_MAX_N) when config.dense_mxu_sampling opts in.
+_MXU_MAX_N = 512
+
 _NOT_PORTED = {
-    "dense": "the dense sampler route (ROADMAP Queue A 'Dense sampler "
-             "route', which needs the pallas_dense kernel of Queue B)",
     "state_space_parallel": "the associative-scan filter (ROADMAP Queue A "
                             "'Rest of the state space')",
     "hodlr": "the HODLR engine (ROADMAP Queue A 'HODLR')",
@@ -77,11 +81,12 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
     :param log_prior: optional extra prior ``log_prior(theta_active (n,))
         -> scalar`` in torch operations (evaluated per chain with
         ``torch.func.vmap``), added on top of the bounds prior.
-    :param method: ``"auto"`` or ``"state_space"``: the exact O(N) Kalman
-        likelihood for 1-D Markovian kernels.  The dense, associative-scan
-        and HODLR routes come with later slices and raise
-        ``NotImplementedError``; so does ``"auto"`` for a kernel without a
-        state-space form.
+    :param method: ``"state_space"``: the exact O(N) Kalman likelihood
+        for 1-D Markovian kernels; ``"dense"``: covariance build +
+        Cholesky, O(N^3), for every kernel; ``"auto"``: state-space where
+        the kernel admits it, dense otherwise.  The associative-scan and
+        HODLR routes come with later slices and raise
+        ``NotImplementedError``.
     :param device: where the density is evaluated (default: the CUDA
         card; raises without one unless ``device="cpu"`` is given).
     :param dtype: the dtype of the returned ``theta0``.
@@ -97,7 +102,8 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
             "method '{0}' is not ported yet: {1}".format(
                 method, _NOT_PORTED[method])
         )
-    if method not in ("auto", "state_space", "state_space_sequential"):
+    if method not in ("auto", "dense", "state_space",
+                      "state_space_sequential"):
         raise ValueError("unknown method '{0}'".format(method))
 
     x_host = np.ascontiguousarray(gp.parse_samples(x), dtype=np.float64)
@@ -107,18 +113,19 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
     )
     node = gp.kernel.spec_node()
     usable = x_host.shape[1] == 1 and sskf.supports_state_space(node)
-    if not usable:
-        if method != "auto":
-            raise sskf.StateSpaceUnsupported(
-                "kernel/inputs have no exact state-space form"
-            )
-        raise NotImplementedError(
-            "kernel/inputs have no exact state-space form, and "
-            + _NOT_PORTED["dense"] + " is not ported yet"
+    if method in ("state_space", "state_space_sequential") and not usable:
+        raise sskf.StateSpaceUnsupported(
+            "kernel/inputs have no exact state-space form; use "
+            "method='dense'"
         )
-    log_prob = _build_state_space_log_prob(
-        gp, node, x_host, y_host, yerr2, log_prior, device
-    )
+    if method != "dense" and usable:
+        log_prob = _build_state_space_log_prob(
+            gp, node, x_host, y_host, yerr2, log_prior, device
+        )
+    else:
+        log_prob = _build_dense_log_prob(
+            gp, node, x_host, y_host, yerr2, log_prior, device
+        )
     theta0 = torch.as_tensor(gp.get_parameter_vector(),
                              device=device).to(dtype)
     return log_prob, theta0
@@ -131,22 +138,17 @@ def _prior_value_and_grad(log_prior, thetas):
     return values, grads
 
 
-def _build_state_space_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
-                                device):
-    """O(N) Kalman-filter posterior density (1-D Markovian kernels)."""
-    # The marginal likelihood is permutation-invariant; the filter needs
-    # time-ordered inputs.
-    order = np.argsort(x_host[:, 0], kind="stable")
-    t_host = x_host[order, 0]
-    y_sorted = y_host[order]
-    yerr2_sorted = yerr2[order]
-    x_sorted = x_host[order]
+def _posterior(gp, x_host, host, log_prior, device, loglike):
+    """The batched ``log_prob(theta_active)`` over a likelihood.
 
-    terms = sskf.extract_terms(node)
-    f64 = torch.float64
-    mean_fn = traceable_model_fn(gp.mean, x_sorted, device, f64)
-    wn_fn = traceable_model_fn(gp.white_noise, x_sorted, device, f64)
-
+    :param host: the dataset as float64 host arrays, cast once per dtype.
+    :param loglike: ``(kernel parameters (B, P), data, mean, log white
+        noise) -> ll (B,)``, differentiable by autograd; the mean and the
+        log white noise are (B, N) or (N,).
+    Returns ``(log_prob, theta_full0, unfrozen, lo, hi)``.
+    """
+    mean_fn = traceable_model_fn(gp.mean, x_host, device, torch.float64)
+    wn_fn = traceable_model_fn(gp.white_noise, x_host, device, torch.float64)
     n_mean = gp.mean.full_size
     n_wn = gp.white_noise.full_size
     theta_full0 = torch.as_tensor(
@@ -155,12 +157,11 @@ def _build_state_space_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
     unfrozen = torch.as_tensor(np.flatnonzero(gp.unfrozen_mask),
                                device=device)
     lo, hi = (torch.as_tensor(a, device=device) for a in _bounds_arrays(gp))
-    host = dict(dt=np.diff(t_host), x=x_sorted, y=y_sorted, yerr2=yerr2_sorted)
     cache = {}
 
     def data(dtype):
         if dtype not in cache:
-            cache[dtype] = {k: torch.as_tensor(v, device=device).to(dtype)
+            cache[dtype] = {k: torch.tensor(v, device=device).to(dtype)
                             for k, v in host.items()}
         return cache[dtype]
 
@@ -171,72 +172,54 @@ def _build_state_space_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
         theta = theta_full0.to(th_a.dtype).expand(th_a.shape[0], -1) \
             .index_copy(1, unfrozen, th_a)
         in_bounds = torch.all((theta >= lo) & (theta <= hi), dim=1)
-
-        th_mean = theta[:, :n_mean]
-        th_wn = theta[:, n_mean:n_mean + n_wn]
-        th_kernel = theta[:, n_mean + n_wn:]
-        r = d["y"] - mean_fn(th_mean, d["x"])
-        v = d["yerr2"] + torch.exp(wn_fn(th_wn, d["x"]))
-        ll = sskf.kalman_loglike(terms, th_kernel, d["dt"], r, v)
+        mean = mean_fn(theta[:, :n_mean], d["x"])
+        log_wn = wn_fn(theta[:, n_mean:n_mean + n_wn], d["x"])
+        ll = loglike(theta[:, n_mean + n_wn:], d, mean, log_wn)
 
         lp = torch.where(in_bounds, ll, torch.full_like(ll, -np.inf))
         if log_prior is not None:
             lp = lp + torch.func.vmap(log_prior)(th_a).to(lp.dtype)
-        # NaN (failed filter) and +inf both read as rejected proposals.
+        # NaN (failed filter or factorization) and +inf (an exactly zero
+        # pivot) both read as rejected proposals.
         lp = torch.where(lp < np.inf, lp, torch.full_like(lp, -np.inf))
         return lp[0] if single else lp
 
+    return log_prob, theta_full0, unfrozen, lo, hi
+
+
+def _build_state_space_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
+                                device):
+    """O(N) Kalman-filter posterior density (1-D Markovian kernels)."""
+    # The marginal likelihood is permutation-invariant; the filter needs
+    # time-ordered inputs.
+    order = np.argsort(x_host[:, 0], kind="stable")
+    t_host = x_host[order, 0]
+    y_sorted = y_host[order]
+    yerr2_sorted = yerr2[order]
+    x_sorted = x_host[order]
+    terms = sskf.extract_terms(node)
+
+    def loglike(th_kernel, d, mean, log_wn):
+        return sskf.kalman_loglike(terms, th_kernel, d["dt"], d["y"] - mean,
+                                   d["yerr2"] + torch.exp(log_wn))
+
+    host = dict(dt=np.diff(t_host), x=x_sorted, y=y_sorted, yerr2=yerr2_sorted)
+    log_prob, theta_full0, unfrozen, lo, hi = _posterior(
+        gp, x_sorted, host, log_prior, device, loglike)
     log_prob.engine = "torch_state_space"
-    _attach_kalman_vg(
-        log_prob, gp, node, t_host, y_sorted, yerr2_sorted, x_sorted,
-        theta_full0, unfrozen, lo, hi, log_prior, device,
-    )
-    return log_prob
-
-
-def _attach_kalman_vg(log_prob, gp, node, t_host, y_sorted, yerr2_sorted,
-                      x_sorted, theta_full0, unfrozen, lo, hi, log_prior,
-                      device):
-    """Attach ``log_prob.batched_value_and_grad`` through the fused Kalman
-    value+gradient when the model shapes fit its parameter layout: mean and
-    white noise each either parameter-free (values baked into the data) or
-    a :class:`ConstantModel` scalar (frozen or trainable)."""
     if len(t_host) > kalman.MAX_N:
-        if device.type == "cuda":
-            # The reference streams such a series through a Pallas kernel;
-            # on the card the port has no kernel for it yet, and the plain
-            # filter must not stand in for one.
-            raise NotImplementedError(
-                "N={0} > {1}: the streaming Kalman kernel (ROADMAP Queue B "
-                "1, pallas_kalman._kernel_builder_streaming) is not ported "
-                "yet; use device='cpu' for the plain filter".format(
-                    len(t_host), kalman.MAX_N))
-        logging.getLogger("george_tpu_torch").warning(
-            "N=%d > %d: the fused Kalman engine does not take this series "
-            "yet; gradients run through autograd of the plain filter",
-            len(t_host), kalman.MAX_N,
-        )
-        return
-    mean, wn = gp.mean, gp.white_noise
-    if isinstance(mean, ConstantModel) and mean.full_size == 1:
-        n_mean, y_eff = 1, np.asarray(y_sorted)
-    elif mean.full_size == 0:
-        n_mean = 0
-        y_eff = np.asarray(y_sorted) - np.broadcast_to(
-            mean.get_value(x_sorted), (len(x_sorted),)
-        )
-    else:
-        return
-    if isinstance(wn, ConstantModel) and wn.full_size == 1:
-        n_wn, v_eff = 1, np.asarray(yerr2_sorted)
-    elif wn.full_size == 0:
-        n_wn = 0
-        v_eff = np.asarray(yerr2_sorted) + np.exp(np.broadcast_to(
-            wn.get_value(x_sorted), (len(x_sorted),)
-        ))
-    else:
-        return
-
+        _engine_note("N={0} > {1}".format(len(t_host), kalman.MAX_N),
+                     what="state-space sampler path: falling back to the "
+                          "plain filter")
+        return log_prob
+    # The fused Kalman value+gradient takes mean and white noise each either
+    # parameter-free (values baked into the data) or a ConstantModel scalar.
+    n_mean, y_eff = _scalar_or_baked(gp.mean, x_sorted, y_sorted,
+                                     lambda y, m: y - m)
+    n_wn, v_eff = _scalar_or_baked(gp.white_noise, x_sorted, yerr2_sorted,
+                                   lambda v, w: v + np.exp(w))
+    if n_mean is None or n_wn is None:
+        return log_prob
     active = tuple(int(i) for i in unfrozen.tolist())
     vg_core = kalman.make_kalman_vg(
         node, t_host, y_eff, v_eff, n_mean, n_wn, active,
@@ -247,6 +230,106 @@ def _attach_kalman_vg(log_prob, gp, node, t_host, y_sorted, yerr2_sorted,
     log_prob.kalman_vg = vg_core
     log_prob.engine = "cuda_kalman" if device.type == "cuda" \
         else "torch_kalman"
+    return log_prob
+
+
+def _build_dense_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
+                          device):
+    """Dense posterior density: covariance build + Cholesky, O(N^3), for
+    every kernel (the JAX package's ``xla_dense`` route)."""
+    def loglike(th_kernel, d, mean, log_wn):
+        return dense.gp_loglike(node, th_kernel, d["x"], d["y"] - mean,
+                                d["yerr2"] + torch.exp(log_wn))
+
+    host = dict(x=x_host, y=y_host, yerr2=yerr2)
+    log_prob, theta_full0, unfrozen, lo, hi = _posterior(
+        gp, x_host, host, log_prior, device, loglike)
+    log_prob.engine = "torch_dense_autograd"
+    _attach_dense_vg(log_prob, gp, node, x_host, y_host, yerr2, theta_full0,
+                     unfrozen, lo, hi, log_prior, device)
+    return log_prob
+
+
+def _scalar_or_baked(model, x, base, transform):
+    """ConstantModel scalar -> (1, base); parameter-free -> (0, baked).
+
+    Anything else returns (None, None): the fused engines take the full
+    parameter vector laid out [mean (<= 1) | white noise (<= 1) | kernel],
+    so a mean / noise model with more (even frozen) parameters does not fit.
+    """
+    if isinstance(model, ConstantModel) and model.full_size == 1:
+        return 1, np.asarray(base)
+    if model.full_size == 0:
+        vals = np.broadcast_to(model.get_value(x), (len(x),))
+        return 0, transform(np.asarray(base), vals)
+    return None, None
+
+
+def _engine_note(reason, what="dense sampler path: falling back to the "
+                              "plain batched value_and_grad"):
+    """One-line, config-gated notice that a posterior fell out of a fused
+    engine's envelope onto the plain route."""
+    if config.engine_log:
+        logging.getLogger("george_tpu_torch").warning(
+            "%s (%s); set config.engine_log=False to silence", what, reason,
+        )
+
+
+def _attach_dense_vg(log_prob, gp, node, x_host, y_host, yerr2, theta_full0,
+                     unfrozen, lo, hi, log_prior, device):
+    """Attach the fused batched dense value+gradient where it applies: N <=
+    256, metric types 0/1, mean and white noise scalar or parameter-free
+    (the JAX package's ``_attach_pallas_dense_vg``, same envelope and
+    notes).  Where that router would pick its MXU hybrid (not ported,
+    ROADMAP Queue B 3), the card raises and the CPU keeps the plain route.
+    """
+    if config.pallas_dense == "never":
+        return
+    if config.pallas_dense != "auto":
+        raise ValueError("config.pallas_dense must be 'auto' or 'never', got "
+                         "{0!r}".format(config.pallas_dense))
+    n = len(x_host)
+    mxu_ok = config.dense_mxu_sampling and n <= _MXU_MAX_N
+    fused = dense.supports_dense(node, n) \
+        and (n < config.dense_mxu_min_n or not mxu_ok)
+    if not fused and not mxu_ok:
+        _engine_note(
+            "N={0} is outside the VPU kernel envelope and "
+            "config.dense_mxu_sampling is off (the MXU engine's "
+            "posterior-moment envelope is still open)".format(n)
+        )
+        return
+    n_mean, y_eff = _scalar_or_baked(gp.mean, x_host, y_host,
+                                     lambda y, m: y - m)
+    if n_mean is None:
+        _engine_note("mean model is neither a scalar ConstantModel nor "
+                     "parameter-free")
+        return
+    n_wn, v_eff = _scalar_or_baked(gp.white_noise, x_host, yerr2,
+                                   lambda v, w: v + np.exp(w))
+    if n_wn is None:
+        _engine_note("white-noise model is neither a scalar ConstantModel "
+                     "nor parameter-free")
+        return
+    active = tuple(int(i) for i in unfrozen.tolist())
+    if not active:
+        return
+    if not fused:
+        if device.type == "cuda":
+            raise NotImplementedError(
+                "N={0}: config.dense_mxu_sampling routes this posterior to "
+                "the MXU dense engine (dense_mxu._spine_kernel, ROADMAP "
+                "Queue B 3), which is not ported yet; turn "
+                "config.dense_mxu_sampling off or use device='cpu'".format(n))
+        return
+    vg_core = dense.make_dense_batched_vg(node, x_host, y_eff, v_eff, n_mean,
+                                          n_wn, active)
+    log_prob.batched_value_and_grad = _finish_batched_vg(
+        vg_core, theta_full0, unfrozen, lo, hi, log_prior
+    )
+    log_prob.dense_vg = vg_core
+    log_prob.engine = "cuda_dense" if device.type == "cuda" \
+        else "torch_dense"
 
 
 def _finish_batched_vg(vg_core, theta_full0, unfrozen, lo, hi, log_prior):

@@ -9,6 +9,8 @@ itself in interpret mode.  Inputs are made with numpy from a seed and handed
 to both packages as numpy.
 """
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,6 @@ from george_tpu_torch import _build
 from george_tpu_torch import kernels as tk
 from george_tpu_torch.ops import kalman
 from george_tpu_torch.samplers import build_gp_log_prob as torch_build
-from george_tpu_torch.samplers import logprob
 
 
 def _zoo(k):
@@ -216,21 +217,27 @@ def test_wrapper_checks_and_dispatch():
                               np.ones(kalman.MAX_N + 1), 0, 0, (0,))
 
 
-def test_series_longer_than_the_kernel_takes():
-    n = kalman.MAX_N + 1
-    x = np.arange(n, dtype=np.float64)
-    y = np.sin(0.01 * x)
-    gp = george_tpu_torch.GP(1.0 * tk.Matern32Kernel(1.0), device="cpu")
-    # On the CPU the plain filter (gradients by autograd) takes it.
-    lp, _ = torch_build(gp, x, y, 0.1, device="cpu")
-    assert lp.engine == "torch_state_space"
-    assert not hasattr(lp, "batched_value_and_grad")
-    # On the card the plain filter never stands in for the missing streaming
-    # kernel; the raise comes before anything touches the device.
-    with pytest.raises(NotImplementedError, match="Queue B 1"):
-        logprob._attach_kalman_vg(
-            lp, gp, gp.kernel.spec_node(), x, y, np.full(n, 0.01), x[:, None],
-            None, None, None, None, None, torch.device("cuda"))
+def test_series_longer_than_the_kernel_takes(caplog):
+    # The cap is the reference's (pallas_kalman.MAX_N): one kernel streams
+    # every series up to it, past the 32768 of the reference's SMEM kernel.
+    assert kalman.MAX_N == 1 << 22
+    n = 32769
+    x, y, yerr = _dataset(n=n, seed=9)
+    x = x * (n / 10.0 / 40.0)                 # gaps of ~0.025 length scales
+    gt = george_tpu_torch.GP(1.0 * tk.Matern32Kernel(1.0), device="cpu")
+    with caplog.at_level(logging.WARNING, logger="george_tpu_torch"):
+        lp_t, theta0 = torch_build(gt, x, y, yerr, device="cpu")
+    assert not caplog.records
+    assert lp_t.engine == "torch_kalman"
+    assert hasattr(lp_t, "batched_value_and_grad")
+    lp_j, _ = jax_build(george_tpu.GP(1.0 * jk.Matern32Kernel(1.0)), x, y,
+                        yerr)
+    thetas = _thetas(theta0.numpy(), 2, 0.1, seed=10)
+    ref = np.asarray(jax.jit(jax.vmap(lp_j))(jnp.asarray(thetas)))
+    with torch.no_grad():
+        lp = lp_t(torch.as_tensor(thetas)).numpy()
+    # The same filter arithmetic in float64 over 32769 steps: 1e-9 relative.
+    np.testing.assert_allclose(lp, ref, rtol=1e-9)
 
 
 def test_entry_points_raise_without_a_device():
@@ -240,8 +247,8 @@ def test_entry_points_raise_without_a_device():
     gp = george_tpu_torch.GP(1.0 * tk.Matern32Kernel(1.0), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_build(gp, x, y, yerr)
-    with pytest.raises(NotImplementedError, match="pallas_dense"):
-        torch_build(gp, x, y, yerr, method="dense", device="cpu")
+    with pytest.raises(NotImplementedError, match="HODLR"):
+        torch_build(gp, x, y, yerr, method="hodlr", device="cpu")
 
 
 @pytest.mark.gpu
@@ -256,8 +263,8 @@ def test_cuda_kernel_matches_plain_version():
                                    tuple(range(len(th_k) + 2)))
         cases.append((name, vg, th_k))
     # Every instantiation at once (one nvcc each, in parallel).
-    _build.build(kalman.SOURCE, [vg.spec.defines(dt) for _, vg, _ in cases
-                                 for dt in (torch.float32, torch.float64)])
+    _build.build_many([vg.spec.instance(dt) for _, vg, _ in cases
+                       for dt in (torch.float32, torch.float64)])
     for name, vg, th_k in cases:
         base = np.concatenate([[0.1, np.log(1e-3)], th_k])
         theta = torch.as_tensor(_thetas(base, 300, 0.2, seed=8))

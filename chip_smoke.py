@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
-"""Drive the PyTorch port's sampler paths on one CUDA card and check them.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
-Three paths, each through the entry points a user calls
-(``build_gp_log_prob`` and ``run_mcmc(algorithm="chees")``), each over a
-hand-written CUDA kernel:
+Four paths, each through the entry points a user calls, each over
+hand-written CUDA kernels:
 
 * the main path: the hyperparameter posterior of ``1.0 *
   Matern32Kernel(1.0)`` with a fitted log white noise over N = 1000 sorted
-  inputs, 16384 chains, every leapfrog one launch of the Kalman
-  value+gradient kernel (``george_tpu_torch/csrc/kalman_vg.cu``);
+  inputs, 16384 chains (``build_gp_log_prob``, ``run_mcmc(algorithm=
+  "chees")``), every leapfrog one launch of the Kalman value+gradient
+  kernel (``george_tpu_torch/csrc/kalman_vg.cu``);
 * the dense path (``benchmarks/config5.py``): ``1.0 * Matern32Kernel`` on
   two of three input axes under an axis-aligned metric, fitted mean and log
   white noise, N = 128, 4096 chains, every leapfrog one launch of the dense
@@ -19,7 +19,15 @@ hand-written CUDA kernel:
   ``dsl/cuda_codegen.py``);
 * the long series (``benchmarks/kalman_stream.py``): the main path's model
   over N = 100,000 points, 1024 chains, through the Kalman kernel streaming
-  the series (the role of the reference's streaming kernel).
+  the series (the role of the reference's streaming kernel);
+* the GP API's large-N dense route (``benchmarks/chol16k.py``'s BASELINE
+  model, ``1.0 * ExpSquaredKernel(1.0)`` with a fitted log white noise, at
+  N = 16384 in float32): ``GP.compute`` / ``log_likelihood`` /
+  ``grad_log_likelihood`` / ``predict`` and a short L-BFGS-B fit, every
+  stationary covariance build a launch of the tiled build kernel and every
+  gradient one of its VJP (``csrc/stationary_cov.cu``); config #5's kernel
+  at N = 8192 and the vmapped dense sampler density at N = 1024 over the
+  same kernels.
 
 Phases (any failure exits non-zero):
 
@@ -46,7 +54,32 @@ Phases (any failure exits non-zero):
    on the long series (B = 1024, N = 100,000), beside their bounds and plain
    versions;
 10. the Kalman kernel on a zoo of kernels at B = 256 against its plain
-    version.
+    version;
+11. the covariance kernels against their plain versions: each stationary
+    spec at N1 = 1000, N2 = 777 and batched (B = 4), float64 at rtol 1e-9
+    and float32 (K within 8 ulps of max |K|, gradients within the
+    reference's float32 tolerances; a repeated backward call bit for bit
+    the same); the compiler's route under
+    ``config.pallas_covariance = "always"`` against ``"never"`` for metric
+    types 0, 1 and 2, a sum of two leaves and a blocked leaf, with the
+    launches each build predicts;
+12. the GP API: the BASELINE model at N = 16384 (compute,
+    log_likelihood, grad_log_likelihood, predict with return_var at 4096
+    points and return_cov at 1024) on the float32 kernel route, the float32
+    plain route and the float64 plain route: each call's launches as
+    predicted, and the kernel route's errors against float64 at most twice
+    the plain float32 route's (plus a stated floor); a 20-iteration
+    L-BFGS-B fit over ``nll`` / ``grad_nll``; "auto" routing (N = 1024
+    launches, N = 1000 and a blocked leaf do not); config #5's kernel at
+    N = 8192 under the same gates;
+13. the dense sampler density (``build_gp_log_prob(method="dense")``) at
+    N = 1024 over 64 chains on a RationalQuadratic kernel: value and
+    gradient, one batched forward and one batched backward launch, under
+    the same accuracy gate;
+14. timing of the covariance kernels and their plain versions at
+    N = 16384 (d = 1) and N = 8192 (d = 2), their float32 errors at
+    N = 16384, and ``GP.compute`` at N = 16384 split into build, factor
+    and the rest, beside ``cholesky_ex`` alone.
 
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
@@ -113,6 +146,27 @@ LONG_CHAINS = 1024
 LONG_CHECK_N = 32_769
 LONG_CHECK_CHAINS = 2
 
+# The GP API's dense route: the BASELINE model (benchmarks/chol16k.py's
+# inputs, benchmarks/scaling.py's y = sin(x)), config #5's kernel, and the
+# vmapped dense sampler density above the fused engine's envelope.
+GP_N = 16384
+GP_PREDICT_VAR = 4096
+GP_PREDICT_COV = 1024
+GP5_N = 8192
+SAMPLER_N = 1024
+SAMPLER_CHAINS = 64
+FIT_ITERATIONS = 20
+EPS32 = float(np.finfo(np.float32).eps)
+# The float32 covariance kernel against the float64 plain version on the
+# same (float32) inputs: K within 8 float32 ulps of max |K| (the exp and
+# the rounding of r2, a few ulps each).
+K32_ULPS = 8
+# The float32 kernel route of the GP against the float64 plain route: its
+# error at most ROUTE_FACTOR times the float32 plain route's, plus
+# ROUTE_FLOOR_ULPS float32 ulps of the quantity's largest magnitude.
+ROUTE_FACTOR = 2.0
+ROUTE_FLOOR_ULPS = 16
+
 
 def log(*args):
     print(*args, flush=True)
@@ -145,6 +199,14 @@ def config5_data(n=DENSE_N, seed=7):
     y = np.sin(x[:, 0]) + 0.3 * np.cos(x[:, 2]) \
         + yerr * rng.standard_normal(n)
     return x, y, yerr
+
+
+def chol16k_data(n=GP_N):
+    """benchmarks/chol16k.py's inputs and yerr, benchmarks/scaling.py's
+    y = sin(x)."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0, 10, n))
+    return x, np.sin(x), 0.1 * np.ones(n)
 
 
 def stream_data(n=LONG_N, seed=0):
@@ -246,6 +308,34 @@ def dense_bound(spec, B, n, ndim, itemsize=4):
     na = len(spec.active)
     nbytes = itemsize * (B * spec.d_full + n * (ndim + 2) + B * (1 + na))
     return _bound(nbytes, B * dense_ops(spec, n))
+
+
+def cov_fwd_bound(leaf, n1, n2, itemsize=4):
+    """(bound_ms, bound_by) of the forward build: K written once, A1, A2
+    and p read once; per entry r2 (3d operations) and the radial value."""
+    from george_tpu_torch.dsl import cuda_codegen
+
+    d = len(leaf.axes)
+    vops, _ = cuda_codegen.radial_ops(leaf)
+    nbytes = itemsize * (n1 * n2 + (n1 + n2) * d + leaf.nparams)
+    return _bound(nbytes, n1 * n2 * (3 * d + vops))
+
+
+def cov_bwd_bound(leaf, n1, n2, itemsize=4):
+    """(bound_ms, bound_by) of the VJP: g, A1, A2 and p read once, dp, dA1
+    and dA2 written once; per entry r2 (3d), the slope, W (1), both
+    contractions (2 (2d + 1)) and, where NP > 0, the value with its NP
+    tangents (at least (1 + NP) times its primal operations) and NP
+    products and sums."""
+    from george_tpu_torch.dsl import cuda_codegen
+
+    d, npar = len(leaf.axes), leaf.nparams
+    vops, sops = cuda_codegen.radial_ops(leaf)
+    nbytes = itemsize * (n1 * n2 + 2 * (n1 + n2) * d + 2 * npar)
+    per = 3 * d + sops + 1 + 2 * (2 * d + 1)
+    if npar:
+        per += (1 + npar) * vops + 2 * npar
+    return _bound(nbytes, n1 * n2 * per)
 
 
 # -- helpers -------------------------------------------------------------------
@@ -395,14 +485,62 @@ def main_gp(device):
                      device=device)
 
 
-def config5_gp(device):
+def config5_gp(device, **kw):
     import george_tpu_torch as george
     from george_tpu_torch import kernels
 
     return george.GP(
         1.0 * kernels.Matern32Kernel(metric=[1.0, 2.0], ndim=3, axes=[0, 2]),
         white_noise=np.log(1e-3), fit_white_noise=True, mean=0.0,
-        fit_mean=True, device=device)
+        fit_mean=True, device=device, **kw)
+
+
+def baseline_gp(device, dtype):
+    """The BASELINE model: ``1.0 * ExpSquaredKernel(1.0)`` with a fitted log
+    white noise."""
+    import george_tpu_torch as george
+    from george_tpu_torch import kernels
+
+    return george.GP(1.0 * kernels.ExpSquaredKernel(1.0),
+                     white_noise=np.log(1e-3), fit_white_noise=True,
+                     device=device, dtype=dtype)
+
+
+def cov_leaves():
+    """One leaf of each stationary spec, as the kernels of phase 11 carry
+    them: (label, leaf)."""
+    from george_tpu_torch import kernels as k
+
+    return [
+        ("exp_squared d=1", k.ExpSquaredKernel(1.0).spec_node()),
+        ("exp d=3", k.ExpKernel(1.0, ndim=3).spec_node()),
+        ("matern32 d=2", k.Matern32Kernel(metric=[1.0, 2.0], ndim=3,
+                                          axes=[0, 2]).spec_node()),
+        ("matern52 d=1", k.Matern52Kernel(1.0).spec_node()),
+        ("rational_quadratic d=1", k.RationalQuadraticKernel(
+            log_alpha=0.3, metric=1.0).spec_node()),
+    ]
+
+
+def cov_trees():
+    """(label, kernel, launches of one build) for the route checks of
+    phase 11: metric types 0, 1 and 2, a sum of two stationary leaves, and
+    a blocked leaf (which must not take the kernel)."""
+    from george_tpu_torch import kernels as k
+
+    return [
+        ("isotropic", 1.3 * k.RationalQuadraticKernel(
+            log_alpha=0.3, metric=0.8, ndim=2), 1),
+        ("axis-aligned", 0.7 * k.Matern32Kernel(metric=[1.0, 2.0], ndim=3,
+                                                axes=[0, 2]), 1),
+        ("general", k.Matern52Kernel(metric=[[1.0, 0.3], [0.3, 2.0]],
+                                     ndim=2), 1),
+        ("sum", 0.5 * k.ExpSquaredKernel(metric=0.6, ndim=2)
+         + k.ExpKernel(metric=[0.5, 1.5], ndim=2), 2),
+        ("blocked", 0.3 * k.ExpSquaredKernel(2.0, ndim=2)
+         + k.Matern32Kernel(metric=1.4, ndim=2, axes=[1],
+                            block=[(-0.5, 0.5)]), 1),
+    ]
 
 
 def bench_prior(gp, device, dtype):
@@ -561,6 +699,551 @@ def run_chees(log_prob, z0, seeds, counter, dev, **opts):
     return out
 
 
+def cov_instances():
+    """(label, dtype, instance) of every covariance kernel phases 11 to 15
+    run, one per (radial function, d, dtype)."""
+    import torch
+    from george_tpu_torch.dsl.compiler import Op
+    from george_tpu_torch.ops import cov
+
+    def leaves(node):
+        if isinstance(node, Op):
+            return leaves(node.k1) + leaves(node.k2)
+        return [node] if node.stationary and not node.blocked else []
+
+    out, seen = [], set()
+    named = cov_leaves() + [("route " + label, leaf)
+                            for label, kern, _ in cov_trees()
+                            for leaf in leaves(kern.spec_node())]
+    for label, leaf in named:
+        for dtype in (torch.float32, torch.float64):
+            inst = cov.instance(leaf, dtype)
+            if inst.key() not in seen:
+                seen.add(inst.key())
+                out.append(("stationary_cov " + label, dtype, inst))
+    return out
+
+
+def cov_counts():
+    from george_tpu_torch.ops import cov
+
+    return cov.stationary_cov_fwd.launches, cov.stationary_cov_bwd.launches
+
+
+def reset_cov_counts():
+    from george_tpu_torch.ops import cov
+
+    cov.stationary_cov_fwd.launches = 0
+    cov.stationary_cov_bwd.launches = 0
+
+
+def check_close64(got, ref, what):
+    """float64 kernel against the float64 plain version: the same formulas
+    in the same type, rtol 1e-9 (and 1e-9 of the largest magnitude where an
+    entry is near 0)."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    ok = bool(torch.all((got - ref).abs() <= 1e-9 * (ref.abs() + scale)))
+    check(ok and bool(torch.all(torch.isfinite(got))),
+          "{0}: max |err| {1:.3e} (max |ref| {2:.4g}; rtol 1e-9)".format(
+              what, err, scale))
+    return err
+
+
+def check_k32(got, ref, what):
+    """float32 K against float64 on the same inputs: K32_ULPS float32 ulps
+    of max |K|."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    check(err <= K32_ULPS * EPS32 * scale and
+          bool(torch.all(torch.isfinite(got))),
+          "{0}: max |err| {1:.3e} <= {2} float32 ulps of max |K| {3:.4g}"
+          .format(what, err, K32_ULPS, scale))
+    return err
+
+
+def check_grad32(got, ref, what):
+    """float32 gradients against float64: the reference's float32 kernel
+    tolerance for gradients, 1e-3 |g| + 1e-2."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    check(bool(torch.all((got - ref).abs() <= 1e-3 * ref.abs() + 1e-2)) and
+          bool(torch.all(torch.isfinite(got))),
+          "{0}: max |err| {1:.3e} (max |ref| {2:.4g}; 1e-3 |g| + 1e-2)"
+          .format(what, err, float(ref.abs().max()) if ref.numel() else 0.0))
+    return err
+
+
+def check_route(errs, what):
+    """The float32 kernel route no less accurate than the float32 plain
+    route: ``errs`` maps a quantity to (kernel error, plain error, largest
+    magnitude), errors against the float64 plain route."""
+    for name, (e_k, e_p, scale) in errs.items():
+        limit = ROUTE_FACTOR * e_p + ROUTE_FLOOR_ULPS * EPS32 * scale
+        check(np.isfinite(e_k) and e_k <= limit,
+              "{0} {1}: kernel route |err| {2:.3e} <= {3} x plain route's "
+              "{4:.3e} + {5} ulps of {6:.4g} ({7:.3e})".format(
+                  what, name, e_k, ROUTE_FACTOR, e_p, ROUTE_FLOOR_ULPS,
+                  scale, limit))
+
+
+def check_cov_kernels(dev):
+    """Phase 11: each leaf's kernels against the plain versions at
+    N1 = 1000, N2 = 777 and batched at B = 4, N1 = 300, N2 = 257, in
+    float64 (rtol 1e-9) and float32; then the compiler's route (metric types
+    0, 1, 2, a sum, a blocked leaf) under "always" against "never".  A
+    second float32 backward call must repeat the first bit for bit.
+    Returns the largest float32 errors (forward, backward)."""
+    import torch
+    from george_tpu_torch import config
+    from george_tpu_torch.dsl import compiler
+    from george_tpu_torch.ops import cov
+
+    rng = np.random.default_rng(31)
+    err_f, err_b = 0.0, 0.0
+    for label, leaf in cov_leaves():
+        d = len(leaf.axes)
+        for lead, n1, n2 in (((), 1000, 777), ((4,), 300, 257)):
+            A1 = rng.uniform(-2, 2, lead + (n1, d))
+            A2 = rng.uniform(-2, 2, lead + (n2, d))
+            A2[..., :100, :] = A1[..., :100, :]     # r2 = 0 off the diagonal
+            p = 0.3 + 0.1 * rng.standard_normal(lead + (leaf.nparams,))
+            g = rng.standard_normal(lead + (n1, n2))
+            for dtype in (torch.float64, torch.float32):
+                args = [torch.as_tensor(v, device=dev, dtype=dtype)
+                        for v in (p, A1, A2, g)]
+                ref_args = [a.double() for a in args]
+                K = cov.stationary_cov_fwd(leaf, *args[:3])
+                grads = cov.stationary_cov_bwd(leaf, *args)
+                torch.cuda.synchronize()
+                K_ref = cov.stationary_cov_torch(leaf, *ref_args[:3])
+                refs = cov.stationary_cov_vjp_torch(leaf, *ref_args)
+                what = "{0} {1} {2}x{3}{4}".format(
+                    label, str(dtype).split(".")[-1], n1, n2,
+                    " B={0}".format(lead[0]) if lead else "")
+                if dtype == torch.float64:
+                    check_close64(K, K_ref, what + " K")
+                    for name, a, b in zip(("dp", "dA1", "dA2"), grads, refs):
+                        check_close64(a, b, what + " " + name)
+                    continue
+                err_f = max(err_f, check_k32(K, K_ref, what + " K"))
+                for name, a, b in zip(("dp", "dA1", "dA2"), grads, refs):
+                    err_b = max(err_b, check_grad32(a, b, what + " " + name))
+                # No atomics: a second call gives the same bits.
+                again = cov.stationary_cov_bwd(leaf, *args)
+                check(all(bool(torch.equal(a, b))
+                          for a, b in zip(grads, again)),
+                      what + ": a second backward call is bit for bit the "
+                      "same")
+    x1 = rng.uniform(-2, 2, (1000, 3))
+    x2 = rng.uniform(-2, 2, (777, 3))
+    x2[:100] = x1[:100]
+    g = rng.standard_normal((1000, 777))
+    for label, kern, leaves in cov_trees():
+        node = kern.spec_node()
+        nd = kern.ndim
+        theta = kern.get_parameter_vector(include_frozen=True)
+        for dtype in (torch.float64, torch.float32):
+            out = {}
+            for route in ("always", "never"):
+                config.pallas_covariance = route
+                ins = [torch.as_tensor(v, device=dev, dtype=dtype)
+                       .requires_grad_(True)
+                       for v in (theta, x1[:, :nd], x2[:, :nd])]
+                before = cov_counts()
+                K = compiler.kernel_value_fn(node)(*ins)
+                grads = torch.autograd.grad(
+                    K, ins, torch.as_tensor(g, device=dev, dtype=dtype))
+                torch.cuda.synchronize()
+                after = cov_counts()
+                out[route] = (K.detach(), grads,
+                              (after[0] - before[0], after[1] - before[1]))
+            config.pallas_covariance = "auto"
+            what = "route {0} {1}".format(label, str(dtype).split(".")[-1])
+            check(out["always"][2] == (leaves, leaves) and
+                  out["never"][2] == (0, 0),
+                  "{0}: launches (forward, backward) {1} under 'always' "
+                  "(predicted {2}), {3} under 'never'".format(
+                      what, out["always"][2], (leaves, leaves),
+                      out["never"][2]))
+            K, grads = out["always"][:2]
+            K_ref, refs = out["never"][:2]
+            if dtype == torch.float64:
+                check_close64(K, K_ref, what + " K")
+                for name, a, b in zip(("theta", "x1", "x2"), grads, refs):
+                    check_close64(a, b, what + " d" + name)
+            else:
+                # The float64 plain route on the same float32 inputs.
+                config.pallas_covariance = "never"
+                ins = [torch.as_tensor(v, device=dev, dtype=torch.float32)
+                       .double().requires_grad_(True)
+                       for v in (theta, x1[:, :nd], x2[:, :nd])]
+                K64 = compiler.kernel_value_fn(node)(*ins)
+                refs = torch.autograd.grad(
+                    K64, ins, torch.as_tensor(g, device=dev))
+                config.pallas_covariance = "auto"
+                check_k32(K, K64.detach(), what + " K")
+                for name, a, b in zip(("theta", "x1", "x2"), grads, refs):
+                    check_grad32(a, b, what + " d" + name)
+    return err_f, err_b
+
+
+def gp_calls(gp, x, y, yerr, t_var=None, t_cov=None):
+    """compute / log_likelihood / grad_log_likelihood (and predict with
+    return_var at ``t_var``, with return_cov at ``t_cov``), each call's
+    (forward, backward) launches beside its result."""
+    import torch
+
+    out, launches = {}, {}
+
+    def call(name, fn):
+        before = cov_counts()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        after = cov_counts()
+        launches[name] = (after[0] - before[0], after[1] - before[1])
+
+    call("compute", lambda: gp.compute(x, yerr))
+    call("log_likelihood", lambda: gp.log_likelihood(y))
+    call("grad_log_likelihood", lambda: gp.grad_log_likelihood(y))
+    if t_var is not None:
+        call("predict_var", lambda: gp.predict(y, t_var, return_var=True))
+    if t_cov is not None:
+        call("predict_cov", lambda: gp.predict(y, t_cov, return_cov=True))
+    return out, launches
+
+
+def route_errors(results):
+    """Errors of the float32 kernel and plain routes against the float64
+    plain route, per quantity: {name: (kernel, plain, max |ref|)}."""
+    ref = results["float64 plain"][0]
+    errs = {}
+
+    def add(name, get):
+        r = np.asarray(get(ref), np.float64)
+        e = [float(np.max(np.abs(np.asarray(get(results[k][0]), np.float64)
+                                 - r)))
+             for k in ("float32 kernel", "float32 plain")]
+        errs[name] = (e[0], e[1], float(np.max(np.abs(r))))
+
+    add("log-likelihood", lambda o: o["log_likelihood"])
+    add("gradient", lambda o: o["grad_log_likelihood"])
+    if "predict_var" in ref:
+        add("predict mean (4096 points)", lambda o: o["predict_var"][0])
+        add("predict variance", lambda o: o["predict_var"][1])
+        add("predict mean (1024 points)", lambda o: o["predict_cov"][0])
+        add("predict covariance", lambda o: o["predict_cov"][1])
+    return errs
+
+
+GP_PREDICTED = {"compute": (1, 0), "log_likelihood": (0, 0),
+                "grad_log_likelihood": (1, 1), "predict_var": (1, 0),
+                "predict_cov": (2, 0)}
+
+
+def check_gp_launches(launches, route, what):
+    """Each call's (forward, backward) launches: on the kernel route one
+    forward per stationary leaf for each build (compute; the gradient's
+    rebuild, plus its one backward; predict's cross matrix, and its prior
+    matrix with return_cov), none on a plain route."""
+    for name, got in launches.items():
+        want = GP_PREDICTED[name] if route == "kernel" else (0, 0)
+        check(got == want, "{0} {1}: launches (forward, backward) {2}, "
+              "predicted {3}".format(what, name, got, want))
+
+
+def run_gp_api(dev, card):
+    """Phase 12: the BASELINE model at N = GP_N through compute,
+    log_likelihood, grad_log_likelihood, predict (return_var at 4096
+    points, return_cov at 1024) and a short L-BFGS-B fit, on the float64
+    plain route (float64 under "auto"), the float32 plain route ("never")
+    and the float32 kernel route ("auto"); then config #5's kernel at
+    N = GP5_N, and the routing of "auto".  Returns the path's (forward,
+    backward) launches: counts set to 0 just before the kernel route's
+    calls and read just after its fit."""
+    import torch
+    from scipy.optimize import minimize
+    from george_tpu_torch import config, kernels
+
+    import george_tpu_torch as george
+
+    f32, f64 = torch.float32, torch.float64
+    x, y, yerr = chol16k_data()
+    t_var = np.linspace(0, 10, GP_PREDICT_VAR)
+    t_cov = np.linspace(0, 10, GP_PREDICT_COV)
+    results = {}
+    for label, dtype, route in (("float64 plain", f64, "auto"),
+                                ("float32 plain", f32, "never")):
+        config.pallas_covariance = route
+        t0 = time.time()
+        results[label] = gp_calls(baseline_gp(dev, dtype), x, y, yerr,
+                                  t_var, t_cov)
+        log("  {0} ('{1}'): ll {2!r} in {3:.2f} s".format(
+            label, route, results[label][0]["log_likelihood"],
+            time.time() - t0))
+        check_gp_launches(results[label][1], "plain", label)
+        torch.cuda.empty_cache()
+    config.pallas_covariance = "auto"
+
+    reset_cov_counts()
+    gp = baseline_gp(dev, f32)
+    t0 = time.time()
+    results["float32 kernel"] = gp_calls(gp, x, y, yerr, t_var, t_cov)
+    out = results["float32 kernel"][0]
+    log("  float32 kernel ('auto'): ll {0!r} in {1:.2f} s".format(
+        out["log_likelihood"], time.time() - t0))
+    check_gp_launches(results["float32 kernel"][1], "kernel",
+                      "float32 kernel")
+    mu, var = out["predict_var"]
+    muc, covm = out["predict_cov"]
+    check(mu.shape == var.shape == (GP_PREDICT_VAR,) and
+          covm.shape == (GP_PREDICT_COV, GP_PREDICT_COV) and
+          all(np.all(np.isfinite(a)) for a in (mu, var, muc, covm)),
+          "predict: finite mean and variance at {0} points, covariance "
+          "{1}".format(GP_PREDICT_VAR, covm.shape))
+    check_route(route_errors(results), "N={0}".format(GP_N))
+
+    # A short fit of the reference's tutorial kind, from a perturbed start.
+    p_start = gp.get_parameter_vector() + 0.5 * np.random.default_rng(
+        5).standard_normal(len(gp))
+    values = []
+
+    def nll(v):
+        values.append(gp.nll(v, y))
+        return values[-1]
+
+    t0 = time.time()
+    res = minimize(nll, p_start, jac=lambda v: gp.grad_nll(v, y),
+                   method="L-BFGS-B", options=dict(maxiter=FIT_ITERATIONS))
+    torch.cuda.synchronize()
+    path_launches = cov_counts()
+    check(all(np.isfinite(values)) and res.fun <= values[0],
+          "L-BFGS-B fit: {0} iterations, {1} objectives, all finite; NLL "
+          "{2!r} -> {3!r} in {4:.2f} s; parameters {5}".format(
+              res.nit, len(values), values[0], float(res.fun),
+              time.time() - t0, np.round(res.x, 4)))
+    log("  the path (float32 kernel route and the fit): {0} forward and "
+        "{1} backward launches".format(*path_launches))
+    del gp
+    torch.cuda.empty_cache()
+
+    # "auto" takes the kernel for float32 at N >= 1024 (2^20 entries) and
+    # the plain route below it and for a blocked leaf.
+    blocked = george.GP(1.0 * kernels.ExpSquaredKernel(1.0, block=[(0, 5)]),
+                        white_noise=np.log(1e-3), device=dev, dtype=f32)
+    for what, g, n, want in (
+            ("float32 N=1024", baseline_gp(dev, f32), 1024, (1, 0)),
+            ("float32 N=1000", baseline_gp(dev, f32), 1000, (0, 0)),
+            ("float32 blocked leaf N=2048", blocked, 2048, (0, 0))):
+        before = cov_counts()
+        g.compute(x[:n], yerr[:n])
+        torch.cuda.synchronize()
+        after = cov_counts()
+        got = (after[0] - before[0], after[1] - before[1])
+        check(got == want, "'auto' {0}: compute launches {1}, predicted "
+              "{2}".format(what, got, want))
+
+    xd, yd, yerrd = config5_data(GP5_N)
+    results5 = {}
+    for label, dtype, route in (("float64 plain", f64, "auto"),
+                                ("float32 plain", f32, "never"),
+                                ("float32 kernel", f32, "auto")):
+        config.pallas_covariance = route
+        t0 = time.time()
+        results5[label] = gp_calls(config5_gp(dev, dtype=dtype), xd, yd,
+                                   yerrd)
+        log("  config #5 {0} ('{1}'): ll {2!r}, gradient {3} in {4:.2f} s"
+            .format(label, route, results5[label][0]["log_likelihood"],
+                    np.round(results5[label][0]["grad_log_likelihood"], 4),
+                    time.time() - t0))
+        check_gp_launches(results5[label][1],
+                          "kernel" if label == "float32 kernel" else "plain",
+                          "config #5 " + label)
+        torch.cuda.empty_cache()
+    config.pallas_covariance = "auto"
+    check_route(route_errors(results5), "config #5 N={0}".format(GP5_N))
+    return path_launches
+
+
+def run_sampler_density(dev):
+    """Phase 13: ``build_gp_log_prob(method="dense")`` value and gradient
+    over SAMPLER_CHAINS chains at N = SAMPLER_N (above the fused engine's
+    envelope, so the plain density builds K under ``torch.func.vmap``) on
+    a RationalQuadratic kernel (a radial parameter, so dp), on the three
+    routes; the float32 kernel route is one batched forward and one batched
+    backward."""
+    import torch
+    from george_tpu_torch import config, kernels
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    import george_tpu_torch as george
+
+    rng = np.random.default_rng(3)
+    x = np.sort(rng.uniform(0, 10, SAMPLER_N))
+    y = np.sin(x) + 0.1 * rng.standard_normal(SAMPLER_N)
+    gp = george.GP(1.0 * kernels.RationalQuadraticKernel(log_alpha=0.3,
+                                                         metric=1.0),
+                   white_noise=np.log(1e-2), fit_white_noise=True,
+                   device=dev)
+    thetas = gp.get_parameter_vector()[None] + 0.05 * rng.standard_normal(
+        (SAMPLER_CHAINS, len(gp)))
+    results = {}
+    for label, dtype, route in (("float64 plain", torch.float64, "auto"),
+                                ("float32 plain", torch.float32, "never"),
+                                ("float32 kernel", torch.float32, "auto")):
+        config.pallas_covariance = route
+        lp, _ = build_gp_log_prob(gp, x, y, 0.1, method="dense", device=dev,
+                                  dtype=dtype)
+        th = torch.as_tensor(thetas, device=dev, dtype=dtype) \
+            .requires_grad_(True)
+        before = cov_counts()
+        v = lp(th)
+        g, = torch.autograd.grad(v.sum(), th)
+        torch.cuda.synchronize()
+        after = cov_counts()
+        got = (after[0] - before[0], after[1] - before[1])
+        want = (1, 1) if label == "float32 kernel" else (0, 0)
+        check(lp.engine == "torch_dense_autograd" and got == want and
+              bool(torch.all(torch.isfinite(v))) and
+              bool(torch.all(torch.isfinite(g))),
+              "{0} ('{1}'): engine {2}, launches (forward, backward) {3} "
+              "(predicted {4}), finite values and gradients".format(
+                  label, route, lp.engine, got, want))
+        results[label] = ({"log_likelihood": v.detach().cpu().numpy(),
+                           "grad_log_likelihood": g.cpu().numpy()}, got)
+    config.pallas_covariance = "auto"
+    check_route(route_errors(results), "sampler density B={0}".format(
+        SAMPLER_CHAINS))
+
+
+def time_cov(dev, card, path_launches, err_f, err_b):
+    """Phase 14: the kernels and their plain versions at the paths' shapes
+    (N = GP_N with d = 1, the BASELINE model; N = GP5_N with d = 2, config
+    #5's two axes), the kernels' float32 errors at N = GP_N, and
+    ``GP.compute`` at N = GP_N split into build, factor and the rest.
+    Returns the kernels' entries of the JSON line."""
+    import torch
+    from george_tpu_torch import config
+    from george_tpu_torch.ops import cov, linalg
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x, y, yerr = chol16k_data()
+    xd = config5_data(GP5_N)[0]
+    leaf_b, leaf_5 = cov_leaves()[0][1], cov_leaves()[2][1]
+    shapes = (
+        ("N={0} d=1".format(GP_N), leaf_b,
+         torch.as_tensor(x[:, None], device=dev, dtype=f32)),
+        ("N={0} d=2".format(GP5_N), leaf_5,
+         torch.as_tensor(xd[:, [0, 2]] * np.exp(-0.5 * np.log([1.0, 2.0])),
+                         device=dev, dtype=f32)),
+    )
+    timed = {}
+    for label, leaf, A in shapes:
+        n = A.shape[0]
+        p = torch.zeros(leaf.nparams, device=dev, dtype=f32)
+        g = torch.randn((n, n), generator=gen, device=dev, dtype=f32)
+        f_ms, f_min = median_ms(lambda: cov.stationary_cov_fwd(leaf, p, A, A),
+                                reps=20)
+        b_ms, b_min = median_ms(
+            lambda: cov.stationary_cov_bwd(leaf, p, A, A, g), reps=20)
+        fp_ms, _ = median_ms(lambda: cov.stationary_cov_torch(leaf, p, A, A),
+                             reps=5, warmup=1)
+        bp_ms, _ = median_ms(
+            lambda: cov.stationary_cov_vjp_torch(leaf, p, A, A, g), reps=5,
+            warmup=1)
+        fb, fby = cov_fwd_bound(leaf, n, n)
+        bb, bby = cov_bwd_bound(leaf, n, n)
+        log("  forward float32 {0}: median {1:.4f} ms (min {2:.4f}) over 20 "
+            "launches; plain build {3:.4f} ms; bound {4:.4f} ms set by {5}; "
+            "kernel at {6:.1%} of the bound; library call: none; on {7}"
+            .format(label, f_ms, f_min, fp_ms, fb, fby, fb / f_ms, card))
+        log("  backward float32 {0}: median {1:.4f} ms (min {2:.4f}) over "
+            "20 calls ({3} grid launches each); plain VJP {4:.4f} ms; bound "
+            "{5:.4f} ms set by {6}; kernel at {7:.1%} of the bound; library "
+            "call: none; on {8}".format(
+                label, b_ms, b_min, 4 if leaf.nparams else 3, bp_ms, bb, bby,
+                bb / b_ms, card))
+        timed[label] = (f_ms, fp_ms, fb, fby, b_ms, bp_ms, bb, bby)
+        if n == GP_N:
+            K = cov.stationary_cov_fwd(leaf, p, A, A)
+            grads = cov.stationary_cov_bwd(leaf, p, A, A, g)
+            torch.cuda.synchronize()
+            K_ref = cov.stationary_cov_torch(leaf, p.double(), A.double(),
+                                             A.double())
+            err_f = max(err_f, check_k32(K, K_ref, "forward " + label))
+            del K, K_ref
+            refs = cov.stationary_cov_vjp_torch(
+                leaf, p.double(), A.double(), A.double(), g.double())
+            for name, a, b in zip(("dp", "dA1", "dA2"), grads, refs):
+                err_b = max(err_b, check_grad32(a, b, "backward {0} {1}"
+                                                .format(label, name)))
+            del grads, refs
+        del g
+        torch.cuda.empty_cache()
+
+    # GP.compute at N = GP_N, float32: build (the kernel and the diagonal),
+    # factor (cholesky_ex alone) and the rest (the NaN guard, the
+    # log-determinant, host transfers), beside the plain route's compute.
+    gp = baseline_gp(dev, f32)
+    walls = {}
+    for route in ("never", "auto", "auto", "never"):
+        config.pallas_covariance = route
+        gp.compute(x, yerr)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            gp.compute(x, yerr)
+            torch.cuda.synchronize()
+            walls.setdefault(route, []).append(1e3 * (time.time() - t0))
+    config.pallas_covariance = "auto"
+    node = gp.kernel.spec_node()
+    theta = torch.as_tensor(gp.kernel.get_parameter_vector(
+        include_frozen=True), device=dev, dtype=f32)
+    xt = torch.as_tensor(x[:, None], device=dev, dtype=f32)
+    noise = torch.as_tensor(yerr ** 2 + np.exp(gp.white_noise.get_value(x)),
+                            device=dev, dtype=f32)
+    with torch.no_grad():
+        build_ms, _ = median_ms(lambda: linalg.build_K(node, theta, xt,
+                                                       noise), reps=10)
+        K = linalg.build_K(node, theta, xt, noise)
+        chol_ms, chol_min = median_ms(lambda: torch.linalg.cholesky_ex(K),
+                                      reps=10)
+    compute_ms = float(np.median(walls["auto"]))
+    log("  GP.compute float32 N={0} (build + factor + logdet): median "
+        "{1:.2f} ms on the kernel route, {2:.2f} ms on the plain route "
+        "(host clock, 10 calls each); build {3:.4f} ms (CUDA events), "
+        "cholesky_ex alone {4:.2f} ms (min {5:.2f}), rest {6:.2f} ms; "
+        "cholesky_ex at {7:.1f} TFLOP/s (N^3 / 3); on {8}".format(
+            GP_N, compute_ms, float(np.median(walls["never"])), build_ms,
+            chol_ms, chol_min, compute_ms - build_ms - chol_ms,
+            GP_N ** 3 / 3.0 / (chol_ms * 1e-3) / 1e12, card))
+    del K, gp
+    torch.cuda.empty_cache()
+
+    f_ms, fp_ms, fb, fby, b_ms, bp_ms, bb, bby = timed[shapes[0][0]]
+    entry = {"route": "cuda",
+             "source": "george_tpu_torch/csrc/stationary_cov.cu",
+             "library_ms": None}
+    return [dict(entry, name="stationary_cov_fwd",
+                 replaces="george_tpu/ops/pallas_cov.py:66",
+                 launches=path_launches[0], max_abs_err=err_f, ms=f_ms,
+                 plain_ms=fp_ms, bound_ms=fb, bound_by=fby),
+            dict(entry, name="stationary_cov_bwd",
+                 replaces="george_tpu/ops/pallas_cov.py:71",
+                 launches=path_launches[1], max_abs_err=err_b, ms=b_ms,
+                 plain_ms=bp_ms, bound_ms=bb, bound_by=bby)]
+
+
 # -- the phases ----------------------------------------------------------------
 
 def run(dev, card):
@@ -644,6 +1327,7 @@ def run(dev, card):
                        ("dense path", dense_main)] +
                       [("dense zoo " + name, lp.dense_vg)
                        for name, (_, lp) in dzoo.items()])
+    built += cov_instances()
     keys = {inst.key() for _, _, inst in built}
     zoo_built = [b for b in instances([("kalman zoo " + name, v)
                                        for name, (_, v) in zoo_vgs.items()])
@@ -918,6 +1602,25 @@ def run(dev, card):
         compare(vg, th, "zoo {0} B={1} N=200 active={2}".format(
             name, ZOO_CHAINS, vg.spec.active))
 
+    # -- phase 11: covariance kernels against their plain versions ---------
+    phase("11: covariance kernels against their plain versions")
+    cov_err_f, cov_err_b = check_cov_kernels(dev)
+
+    # -- phase 12: the GP API at full width -----------------------------------
+    phase("12: the GP API, BASELINE model at N={0}, config #5's kernel at "
+          "N={1}".format(GP_N, GP5_N))
+    gp_path = run_gp_api(dev, card)
+
+    # -- phase 13: the vmapped dense sampler density ----------------------------
+    phase("13: the dense sampler density at N={0}, B={1}, float32".format(
+        SAMPLER_N, SAMPLER_CHAINS))
+    run_sampler_density(dev)
+
+    # -- phase 14: covariance timing ---------------------------------------------
+    phase("14: timing of the covariance kernels and of GP.compute (CUDA "
+          "events)")
+    cov_lines = time_cov(dev, card, gp_path, cov_err_f, cov_err_b)
+
     kernels_line += [{
         "name": "kalman_vg (streaming, N > 32768)",
         "route": "cuda",
@@ -942,7 +1645,7 @@ def run(dev, card):
         "bound_ms": d_bound,
         "bound_by": d_by,
         "library_ms": None,
-    }]
+    }] + cov_lines
     return kernels_line
 
 

@@ -2,9 +2,11 @@
 """george_tpu_torch — the PyTorch / CUDA port of george_tpu.
 
 Gaussian-process regression with the YAML kernel DSL, the ``GP`` object,
-and a sampler layer whose hot path, the batched value and gradient of the
-state-space (Kalman) likelihood, is a CUDA kernel written by hand for
-Hopper (``csrc/kalman_vg.cu``).  Entry points run on the CUDA card unless
+and a sampler layer whose hot paths, the batched value and gradient of the
+state-space (Kalman) and small dense likelihoods, are CUDA kernels written
+by hand for Hopper (``csrc/kalman_vg.cu``, ``csrc/dense_vg.cu``); large
+stationary covariance builds and their gradients go through a third
+(``csrc/stationary_cov.cu``).  Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """
 

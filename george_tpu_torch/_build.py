@@ -4,9 +4,9 @@
 Each kernel source under ``csrc/`` has a plain C interface.  One shared
 library is built per instantiation, at first use, into the build directory.
 An instantiation is a source, a set of ``-D`` macros and, for a kernel that
-includes generated code (the dense kernel's tree, ``dsl/cuda_codegen.py``),
-the text of the generated headers: they are written beside the library and
-put on the include path.  The library is named by a hash of the source, the
+includes generated code (the dense kernel's tree, the covariance kernel's
+radial function: ``dsl/cuda_codegen.py``), the text of the generated
+headers: they are written beside the library and put on the include path.  The library is named by a hash of the source, the
 shared headers of ``csrc/``, the generated text and the full flag list, so a
 changed source, header, tree or flag set never loads a stale library, and
 two trees never share one.  Builds of several instantiations run in

@@ -1,10 +1,20 @@
 # -*- coding: utf-8 -*-
-"""Global knobs of the dense sampler route (the JAX package's
-``config.py``, the subset this route reads, with the same names and
-defaults)."""
+"""Global knobs of the port (the JAX package's ``config.py``, the subset
+the ported routes read, with the same names and defaults)."""
 
-__all__ = ["pallas_dense", "dense_mxu_min_n", "dense_mxu_sampling",
-           "engine_log"]
+__all__ = ["pallas_covariance", "pallas_min_elements", "pallas_dense",
+           "dense_mxu_min_n", "dense_mxu_sampling", "engine_log"]
+
+# When a stationary covariance build takes the hand-written tiled kernel
+# (``ops/cov.py``: ``csrc/stationary_cov.cu`` for tensors on the card):
+#   "auto"   — on the card, float32, unblocked stationary leaves, and the
+#              output has at least ``pallas_min_elements`` entries;
+#   "always" — on the card, every unblocked stationary leaf, any size and
+#              float32 or float64;
+#   "never"  — the plain PyTorch build only.
+# On the CPU the plain build always runs.  Read at every build.
+pallas_covariance = "auto"
+pallas_min_elements = 1 << 20
 
 # The fused batched dense value+gradient engine for posteriors without a
 # state-space form (``ops/dense.py``: the CUDA kernel for tensors on the

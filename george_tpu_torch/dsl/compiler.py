@@ -11,6 +11,11 @@ Gradient policy: hyperparameter gradients come from ``torch.autograd``.  The
 only hand-fed derivative is the radial derivative dk/d(r2) of stationary
 kernels, taken from the DSL ``grad: r2`` entry, because autograd through
 ``sqrt(r2)`` is NaN at r2 = 0 for the Matern and Exp families.
+
+Large stationary builds on the card take the hand-written tiled kernel
+(``ops/cov.py``) under ``config.pallas_covariance`` (:func:`use_pallas`):
+the metric is applied to the gathered columns outside the kernel, so
+autograd carries the metric gradients through the kernel's dA1 and dA2.
 """
 
 import importlib
@@ -20,11 +25,12 @@ from typing import Tuple, Union
 
 import torch
 
+from .. import config
 from .specs import available_kernels
 
 __all__ = [
     "Leaf", "Op", "node_size", "kernel_value_fn", "kernel_diag_fn",
-    "pairwise_squared_distance", "metric_r2_matrix",
+    "pairwise_squared_distance", "metric_r2_matrix", "use_pallas",
 ]
 
 
@@ -260,6 +266,21 @@ def _block_mask(X, axes, min_block, max_block):
     return mask
 
 
+def use_pallas(leaf, n1, n2, dtype, device):
+    """True when the (n1, n2) build of ``leaf`` in ``dtype`` on ``device``
+    takes the tiled covariance kernel (``config.pallas_covariance``): never
+    a blocked or non-stationary leaf, never off the card; under "auto" only
+    float32 builds of at least ``config.pallas_min_elements`` entries."""
+    if config.pallas_covariance == "never" or not leaf.stationary \
+            or leaf.blocked:
+        return False
+    if torch.device(device).type != "cuda":
+        return False
+    if config.pallas_covariance == "always":
+        return True
+    return n1 * n2 >= config.pallas_min_elements and dtype == torch.float32
+
+
 @lru_cache(maxsize=None)
 def _value_builder(node: Node):
     """Build ``f(theta, X1, X2) -> (N1, N2)`` for a kernel tree."""
@@ -276,8 +297,22 @@ def _value_builder(node: Node):
     if node.stationary:
         radial = _radial_fn(node.name, node.constants)
 
+        def metric_transform(mp, X):
+            """Columns transformed so that r2 = |a1 - a2|^2."""
+            A = _gather_axes(X, axes)
+            if node.metric_type == 0:
+                return A * torch.exp(-0.5 * mp[0])
+            if node.metric_type == 1:
+                return A * torch.exp(-0.5 * mp)
+            return _solve_lower(_unpack_cholesky(mp, len(axes)), A)
+
         def value(theta, X1, X2):
             p, mp = theta[:node.nparams], theta[node.nparams:]
+            if use_pallas(node, X1.shape[0], X2.shape[0], X1.dtype,
+                          X1.device):
+                from ..ops import cov
+                return cov.make_stationary_cov(node).apply(
+                    p, metric_transform(mp, X1), metric_transform(mp, X2))
             r2 = metric_r2_matrix(
                 node.metric_type, len(axes), mp,
                 _gather_axes(X1, axes), _gather_axes(X2, axes),

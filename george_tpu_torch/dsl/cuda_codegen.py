@@ -38,7 +38,8 @@ import math
 from .compiler import Op, node_size
 from .specs import available_kernels
 
-__all__ = ["CodegenError", "generate", "primal_ops"]
+__all__ = ["CodegenError", "generate", "generate_radial",
+           "primal_ops", "radial_ops"]
 
 _FUNCS = {
     "exp": "exp", "log": "log", "sqrt": "sqrt", "sin": "sin", "cos": "cos",
@@ -251,14 +252,38 @@ def _reparam_lines(spec, env, prefix, ctype="const auto"):
     return lines, ops
 
 
+def _radial_value(spec, leaf, param):
+    """Declarations and expression of the radial value at ``r2v`` (type
+    ``T``), the parameters of type ``S`` read as ``param(i)``."""
+    env = _param_env(spec, leaf, "p")
+    lines = ["  const S& p_{0} = {1};".format(name, param(i))
+             for i, name in enumerate(spec.params)]
+    rlines, ops = _reparam_lines(spec, env, "r")
+    env["r2"] = "r2v"
+    value = _Translator(env)(spec.value)
+    return lines + rlines, value, ops + value.ops
+
+
+def _radial_slope(spec, leaf, param):
+    """Declarations and expression of the closed-form slope ``grad: r2`` at
+    ``r2v``, the primal parameters (type ``T``) read as ``param(i)``."""
+    if "r2" not in spec.grad_dict:
+        raise CodegenError("stationary spec {0} has no grad: r2".format(
+            spec.name))
+    env = _param_env(spec, leaf, "pv")
+    lines = ["  const T pv_{0} = {1};".format(name, param(i))
+             for i, name in enumerate(spec.params)]
+    rlines, ops = _reparam_lines(spec, env, "rv", ctype="const T")
+    env["r2"] = "r2v"
+    slope = _Translator(env)(spec.grad_dict["r2"])
+    return lines + rlines, slope, ops + slope.ops
+
+
 def _stationary_leaf(leaf, spec, fname):
     if leaf.metric_type not in (0, 1):
         raise CodegenError("metric type {0} (only isotropic 0 and "
                            "axis-aligned 1 are generated)".format(
                                leaf.metric_type))
-    if "r2" not in spec.grad_dict:
-        raise CodegenError("stationary spec {0} has no grad: r2".format(
-            spec.name))
     np_ = leaf.nparams
     body, ops = [], 0
     if leaf.blocked:
@@ -284,25 +309,16 @@ def _stationary_leaf(leaf, spec, fname):
             for i in range(len(leaf.axes)))))
         ops += 4 * len(leaf.axes) - 1
     body.append("  const T r2v = value_of(r2);")
-    env = _param_env(spec, leaf, "p")
-    for i, name in enumerate(spec.params):
-        body.append("  const S& p_{0} = th[{1}];".format(name, i))
-    lines, rops = _reparam_lines(spec, env, "r")
+    lines, value, vops = _radial_value(spec, leaf, "th[{0}]".format)
     body += lines
-    env["r2"] = "r2v"
-    value = _Translator(env)(spec.value)
     body.append("  S out = promote<S>({0});".format(value.code))
-    ops += rops + value.ops
+    ops += vops
     # The r2 tangent through the closed-form slope, at the primal
     # parameters.
-    genv = _param_env(spec, leaf, "pv")
-    grad_lines = ["    const T pv_{0} = value_of(p_{0});".format(name)
-                  for name in spec.params]
-    glines, _ = _reparam_lines(spec, genv, "rv", ctype="const T")
-    genv["r2"] = "r2v"
-    slope = _Translator(genv)(spec.grad_dict["r2"])
+    glines, slope, _ = _radial_slope(
+        spec, leaf, lambda i: "value_of(p_{0})".format(spec.params[i]))
     body.append("  if constexpr (is_dual<S>::value) {")
-    body += grad_lines + ["  " + line for line in glines]
+    body += ["  " + line for line in glines]
     body.append("    const T slope = promote<T>({0});".format(slope.code))
     body.append("    out = out + slope * tangent_of(r2);")
     body.append("  }")
@@ -404,3 +420,62 @@ def primal_ops(node):
     primal evaluation of ``kernel_value``, as generated; the operand count
     of the dense kernel's covariance build, per entry."""
     return _build(node, "tree")[1]
+
+
+def _radial(leaf, namespace):
+    if not leaf.stationary:
+        raise CodegenError("{0} is not stationary".format(leaf.name))
+    spec = _spec(leaf)
+    vlines, value, vops = _radial_value(spec, leaf, "p[{0}]".format)
+    slines, slope, sops = _radial_slope(spec, leaf, "p[{0}]".format)
+    text = (
+        "// Generated by george_tpu_torch/dsl/cuda_codegen.py from the kernel "
+        "specs; do not edit.\n"
+        "// The radial function of {name}{consts}.\n"
+        "#pragma once\n"
+        "#include \"dual.cuh\"\n\n"
+        "#define GT_RADIAL_NP {np}\n\n"
+        "namespace gt {{\nnamespace {ns} {{\n\n"
+        "// k(p; r2): S is T for the value, Dual<T, NP> for the value and its\n"
+        "// tangents in the {np} radial parameters p.\n"
+        "template <typename T, typename S>\n"
+        "GT_HD S radial_value(const S* p, const T r2v) {{\n"
+        "{vlines}  (void)p;\n  return promote<S>({value});\n}}\n\n"
+        "// dk/d(r2) at the primal parameters: the spec's grad: r2, guarded\n"
+        "// where the slope diverges.\n"
+        "template <typename T>\n"
+        "GT_HD T radial_slope(const T* p, const T r2v) {{\n"
+        "{slines}  (void)p;\n  return promote<T>({slope});\n}}\n\n"
+        "}}  // namespace {ns}\n}}  // namespace gt\n"
+    ).format(name=spec.name,
+             consts="".join(" {0}={1!r}".format(k, v)
+                            for k, v in leaf.constants),
+             np=leaf.nparams, ns=namespace,
+             vlines="".join(line + "\n" for line in vlines),
+             value=value.code,
+             slines="".join(line + "\n" for line in slines),
+             slope=slope.code)
+    return text, vops, sops
+
+
+def generate_radial(leaf, namespace="radial"):
+    """The header of a stationary leaf's radial function alone, for the
+    tiled covariance kernel (``csrc/stationary_cov.cu``).  It defines, in
+    ``namespace gt::<namespace>``, ``GT_RADIAL_NP`` (the leaf's radial
+    parameter count, possibly 0) and
+
+        template <typename T, typename S>
+        S radial_value(const S* p, T r2);    // k(p; r2), S = T or Dual
+        template <typename T>
+        T radial_slope(const T* p, T r2);    // the spec's grad: r2
+
+    from the spec's ``value:`` and ``grad: r2:``.  It depends only on the
+    spec and the leaf's constants, not on its axes or metric."""
+    return _radial(leaf, namespace)[0]
+
+
+def radial_ops(leaf):
+    """``(value, slope)``: primal operations of one ``radial_value`` and one
+    ``radial_slope`` as generated (each ``exp`` / ``sqrt`` / ``pow`` one)."""
+    _, vops, sops = _radial(leaf, "radial")
+    return vops, sops

@@ -1,15 +1,27 @@
 # -*- coding: utf-8 -*-
-"""The Gaussian Process object (main-path subset).
+"""The Gaussian Process object.
 
-API-compatible with george's GP for ``compute`` / ``log_likelihood`` /
-``grad_log_likelihood`` plus the full modeling-protocol parameter surface
-and the dirty-flag recompute contract.  The full parameter vector is laid
-out [mean | white-noise | kernel].  Prediction and sampling follow in a
-later slice.
+API-compatible with george's GP: ``compute`` / ``log_likelihood`` /
+``grad_log_likelihood`` / ``predict`` / ``sample`` / ``sample_conditional``
+/ ``apply_inverse`` / ``get_matrix`` / ``nll`` / ``grad_nll``, the full
+modeling-protocol parameter surface, the dirty-flag recompute contract and
+the alpha cache keyed on the value of ``y``.  The full parameter vector is
+laid out [mean | white-noise | kernel].
+
+Everything runs on the GP's device in its dtype (default: the CUDA card,
+float64); arrays come in and go out as numpy.  On the card, large
+stationary covariance builds (``compute``, the gradient, the cross and
+prior matrices of ``predict``) go through the tiled kernel of
+``ops/cov.py`` under ``config.pallas_covariance``.  The one deliberate
+difference of API: ``sample`` and ``sample_conditional`` draw from a
+``torch.Generator`` (default: a fresh one) where the JAX package used the
+global ``np.random``.
 
 For the sampler-facing functional interface see
 :func:`george_tpu_torch.samplers.build_gp_log_prob`.
 """
+
+import warnings
 
 import numpy as np
 import torch
@@ -17,8 +29,11 @@ from scipy.linalg import LinAlgError
 
 from . import kernels
 from ._device import resolve_device
+from .dsl import compiler
 from .modeling import ModelSet, ConstantModel
-from .solvers.basic import BasicSolver, build_covariance, cholesky_logdet
+from .ops import linalg
+from .solvers.basic import BasicSolver
+from .utils import multivariate_gaussian_samples, standard_normal
 
 __all__ = ["GP"]
 
@@ -40,6 +55,13 @@ def _is_scalar(value):
     except TypeError:
         return False
     return value is not None
+
+
+def _deprecated(old, new):
+    # stacklevel=3: attribute the warning to the caller of the deprecated
+    # method, not this helper.
+    warnings.warn("'{0}' is deprecated. Use '{1}'".format(old, new),
+                  DeprecationWarning, stacklevel=3)
 
 
 class GP(ModelSet):
@@ -64,6 +86,8 @@ class GP(ModelSet):
         self.device = resolve_device(device)
         self.dtype = dtype
         self._computed = False
+        self._alpha = None
+        self._y = None
         self.solver = None
 
         super(GP, self).__init__([
@@ -121,6 +145,16 @@ class GP(ModelSet):
             )
         return np.broadcast_to(mu, (x.shape[0],))
 
+    def _call_mean_gradient(self, x):
+        mu = self.mean.get_gradient(self._model_input(x))
+        if np.any(np.isnan(mu)) or np.any(np.isinf(mu)):
+            raise ValueError(
+                "mean gradient function returned NaN or Inf for parameters:"
+                "\n{0}".format(
+                    self.mean.get_parameter_dict(include_frozen=True))
+            )
+        return mu
+
     def _call_white_noise(self, x):
         wn = np.asarray(self.white_noise.get_value(self._model_input(x)))
         return np.broadcast_to(wn.flatten(), (x.shape[0],))
@@ -154,9 +188,9 @@ class GP(ModelSet):
             raise ValueError("Dimension mismatch")
         return t
 
-    def _check_dimensions(self, y):
+    def _check_dimensions(self, y, check_dim=True):
         y = np.atleast_1d(y)
-        if y.ndim > 1:
+        if check_dim and y.ndim > 1:
             raise ValueError("The predicted dimension must be 1-D")
         if len(y) != self._x.shape[0]:
             raise ValueError("Dimension mismatch")
@@ -170,6 +204,21 @@ class GP(ModelSet):
     def _tensor(self, a):
         return torch.as_tensor(np.array(a, dtype=np.float64),
                                device=self.device).to(self.dtype)
+
+    @staticmethod
+    def _host(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    def _compute_alpha(self, y, cache):
+        """K^-1 (y - mu), optionally cached on the value of ``y``."""
+        if not cache:
+            return self.solver.apply_inverse(self._residual(y),
+                                             in_place=True).ravel()
+        if self._alpha is None or not np.array_equiv(y, self._y):
+            self._y = y
+            self._alpha = self.solver.apply_inverse(
+                self._residual(y), in_place=True).ravel()
+        return self._alpha
 
     # -- factorization ---------------------------------------------------------------
 
@@ -190,6 +239,7 @@ class GP(ModelSet):
             n * np.log(2 * np.pi) + self.solver.log_determinant
         )
         self.computed = True
+        self._alpha = None
 
     def recompute(self, quiet=False):
         """Refactorize if the parameters changed since the last compute."""
@@ -225,8 +275,8 @@ class GP(ModelSet):
 
         Ordering matches :meth:`get_parameter_vector`: mean, white noise,
         kernel.  Kernel and white-noise terms come from one autograd pass
-        through the Cholesky; the mean term is the (d mu / d theta) @ alpha
-        contraction.
+        through the Cholesky (``ops/linalg.grad_core_fn``); the mean term is
+        the (d mu / d theta) @ alpha contraction.
         """
         if not self.recompute(quiet=quiet):
             return np.zeros(len(self), dtype=np.float64)
@@ -238,30 +288,26 @@ class GP(ModelSet):
                 return np.zeros(len(self), dtype=np.float64)
             raise
 
-        theta = self._tensor(
-            self.kernel.get_parameter_vector(include_frozen=True)
-        ).requires_grad_(True)
-        wn_vec = self._tensor(
-            self._call_white_noise(self._x)
-        ).requires_grad_(True)
-        r = self._tensor(r_host)
-        K = build_covariance(self.kernel.spec_node(), theta,
-                             self._tensor(self._x),
-                             self._tensor(self._yerr2) + torch.exp(wn_vec))
-        L, logdet = cholesky_logdet(K)
-        alpha = torch.cholesky_solve(r[:, None], L)[:, 0]
-        f = -0.5 * (logdet + torch.dot(r, alpha))
-        g_theta, g_wn_vec = (
-            g.cpu().numpy() for g in torch.autograd.grad(f, (theta, wn_vec))
-        )
-        alpha = alpha.detach().cpu().numpy()
+        core = linalg.grad_core_fn(self.kernel.spec_node())
+        g_theta, g_wn_vec, alpha = (self._host(v) for v in core(
+            self._tensor(self.kernel.get_parameter_vector(
+                include_frozen=True)),
+            self._tensor(self._call_white_noise(self._x)),
+            self._tensor(self._x), self._tensor(r_host),
+            self._tensor(self._yerr2)))
 
         grad = np.empty(len(self))
         n = 0
         x_in = self._model_input(self._x)
         n_mean = len(self.mean)
         if n_mean:
-            grad[n:n + n_mean] = np.dot(self.mean.get_gradient(x_in), alpha)
+            try:
+                mu_grad = self._call_mean_gradient(self._x)
+            except ValueError:
+                if quiet:
+                    return np.zeros(len(self), dtype=np.float64)
+                raise
+            grad[n:n + n_mean] = np.dot(mu_grad, alpha)
             n += n_mean
         n_wn = len(self.white_noise)
         if n_wn:
@@ -272,3 +318,147 @@ class GP(ModelSet):
         if n_k:
             grad[n:n + n_k] = g_theta[self.kernel.unfrozen_mask]
         return grad
+
+    def lnlikelihood(self, y, quiet=False):
+        _deprecated("lnlikelihood", "log_likelihood")
+        return self.log_likelihood(y, quiet=quiet)
+
+    def grad_lnlikelihood(self, y, quiet=False):
+        _deprecated("grad_lnlikelihood", "grad_log_likelihood")
+        return self.grad_log_likelihood(y, quiet=quiet)
+
+    def nll(self, vector, y, quiet=True):
+        """Negative log-likelihood at ``vector`` (for scipy optimizers)."""
+        self.set_parameter_vector(vector)
+        if not np.isfinite(self.log_prior()):
+            return np.inf
+        return -self.log_likelihood(y, quiet=quiet)
+
+    def grad_nll(self, vector, y, quiet=True):
+        """Gradient of :meth:`nll` at ``vector``."""
+        self.set_parameter_vector(vector)
+        if not np.isfinite(self.log_prior()):
+            return np.zeros(len(vector))
+        return -self.grad_log_likelihood(y, quiet=quiet)
+
+    # -- prediction --------------------------------------------------------------
+
+    def apply_inverse(self, y):
+        """Apply K^-1 (with the mean subtracted) to a vector or matrix.
+
+        Multi-RHS inputs of shape (N, K) are handled column-wise; the mean
+        is broadcast down the leading (data) axis.
+        """
+        self.recompute(quiet=False)
+        r = self._check_dimensions(
+            np.array(y, dtype=np.float64, order="F"), check_dim=False
+        )
+        mu = self._call_mean(self._x)
+        r -= mu.reshape(mu.shape + (1,) * (r.ndim - 1))
+        out = self.solver.apply_inverse(r, in_place=True)
+        return out.ravel() if r.ndim == 1 else out
+
+    def _matrix(self, kernel, x1, x2=None, diag=False):
+        """A covariance block as a tensor on the GP's device, in its
+        dtype."""
+        return kernel.value_tensor(x1, x2, diag=diag, device=self.device,
+                                   dtype=self.dtype)
+
+    def predict(self, y, t, return_cov=True, return_var=False, cache=True,
+                kernel=None):
+        """Conditional predictive distribution at test points ``t``.
+
+        Returns ``mu``, ``(mu, cov)``, or ``(mu, var)`` depending on
+        ``return_cov`` / ``return_var``.  Passing ``kernel=`` computes the
+        cross terms with a different kernel (for separating the predictions
+        of kernel mixtures).
+        """
+        self.recompute()
+        xs = self.parse_samples(t)
+        cross = self.kernel if kernel is None else kernel
+
+        a = self._tensor(self._compute_alpha(y, cache))
+        Ks = self._matrix(cross, xs, self._x)          # (M, N) cross-cov
+        mean_pred = self._host(Ks @ a) + self._call_mean(xs)
+        if not (return_cov or return_var):
+            return mean_pred
+
+        # One multi-RHS solve W = K^-1 Ks^T serves both output forms.
+        W = linalg.solve_fn(self.solver.factor, Ks.T)
+        if return_var:
+            diag_prior = self._matrix(cross, xs, diag=True)
+            return mean_pred, self._host(
+                diag_prior - torch.sum(Ks * W.T, dim=1))
+        return mean_pred, self._host(self._matrix(cross, xs) - Ks @ W)
+
+    def predictor(self, y):
+        """A repeated-prediction closure for fixed training data.
+
+        Returns ``f(t, return_var=True) -> (mu, var)`` over the current
+        factorization and alpha, with the cross-covariance, solve and
+        variance computed on the GP's device.
+        """
+        self.recompute()
+        alpha = self._tensor(self._compute_alpha(y, True))
+        node = self.kernel.spec_node()
+        theta = self._tensor(self.kernel.get_parameter_vector(
+            include_frozen=True))
+        x_train = self._tensor(self._x)
+        L = self.solver.factor
+        value = linalg.predict_fn(node)
+        diag_fn = compiler.kernel_diag_fn(node)
+
+        def predict_fast(t, return_var=True):
+            xs_host = self.parse_samples(t)
+            xs = self._tensor(xs_host)
+            with torch.no_grad():
+                mu, Kxs, KinvKxs = value(theta, x_train, L, alpha, xs)
+                mu = self._host(mu) + self._call_mean(xs_host)
+                if not return_var:
+                    return mu
+                var = diag_fn(theta, xs, xs) - torch.sum(Kxs * KinvKxs.T,
+                                                         dim=1)
+            return mu, self._host(var)
+
+        return predict_fast
+
+    def sample_conditional(self, y, t, size=1, generator=None):
+        """Draw samples from the predictive conditional distribution."""
+        mu, cov = self.predict(y, t)
+        return multivariate_gaussian_samples(cov, size, mean=mu,
+                                             generator=generator)
+
+    def sample(self, t=None, size=1, generator=None):
+        """Draw samples from the GP prior (``generator``: a
+        ``torch.Generator``, default a freshly seeded one)."""
+        if t is None:
+            # Ride the computed factorization: draws = mean + z L^T.
+            self.recompute()
+            z = standard_normal((size, self._x.shape[0]), generator)
+            draws = self.solver.apply_sqrt(z) + self._call_mean(self._x)
+            return draws[0] if size == 1 else draws
+
+        xs = self.parse_samples(t)
+        cov = self.get_matrix(xs).astype(np.float64)
+        cov.flat[:: len(cov) + 1] += TINY      # jitter the diagonal
+        return multivariate_gaussian_samples(
+            cov, size, mean=self._call_mean(xs), generator=generator
+        )
+
+    def get_matrix(self, x1, x2=None):
+        """The bare covariance matrix at coordinates x1 (x cross x2), as
+        numpy in the GP's dtype."""
+        a = self.parse_samples(x1)
+        b = None if x2 is None else self.parse_samples(x2)
+        return self.kernel.get_value(a, b, device=self.device,
+                                     dtype=self.dtype)
+
+    # -- modeling-protocol synonyms ------------------------------------------------
+
+    def get_value(self, *args, **kwargs):
+        """Synonym for :meth:`log_likelihood` (modeling protocol)."""
+        return self.log_likelihood(*args, **kwargs)
+
+    def get_gradient(self, *args, **kwargs):
+        """Synonym for :meth:`grad_log_likelihood` (modeling protocol)."""
+        return self.grad_log_likelihood(*args, **kwargs)

@@ -106,29 +106,38 @@ class Kernel(ModelSet):
         """The static, hashable expression-tree node for the compiler."""
         raise NotImplementedError
 
-    def _as_coords(self, x, device):
+    def _as_coords(self, x, device, dtype=torch.float64):
         x = np.ascontiguousarray(x, dtype=np.float64)
         if x.ndim != 2 or x.shape[1] != self.ndim:
             raise ValueError("Dimension mismatch")
-        return torch.as_tensor(x, device=device)
+        return torch.as_tensor(x, device=device).to(dtype)
 
-    def get_value(self, x1, x2=None, diag=False, device=None):
-        """Evaluate the covariance between sets of points (float64 numpy).
-
-        ``get_value(x)`` -> the symmetric (N, N) matrix; ``get_value(x1, x2)``
-        -> the (N1, N2) cross matrix; ``diag=True`` -> the row-wise values.
-        Runs on ``device`` (default: the CUDA card).
-        """
+    def value_tensor(self, x1, x2=None, diag=False, device=None,
+                     dtype=torch.float64):
+        """:meth:`get_value` as a tensor on ``device`` in ``dtype`` (the
+        build the GP uses for its cross and prior matrices)."""
         device = resolve_device(device)
-        x1 = self._as_coords(x1, device)
-        x2 = x1 if x2 is None else self._as_coords(x2, device)
+        x1 = self._as_coords(x1, device, dtype)
+        x2 = x1 if x2 is None else self._as_coords(x2, device, dtype)
         node = self.spec_node()
         theta = torch.as_tensor(
             self.get_parameter_vector(include_frozen=True), device=device
-        )
+        ).to(dtype)
         fn = compiler.kernel_diag_fn if diag else compiler.kernel_value_fn
         with torch.no_grad():
-            return fn(node)(theta, x1, x2).cpu().numpy().copy()
+            return fn(node)(theta, x1, x2)
+
+    def get_value(self, x1, x2=None, diag=False, device=None,
+                  dtype=torch.float64):
+        """Evaluate the covariance between sets of points (numpy).
+
+        ``get_value(x)`` -> the symmetric (N, N) matrix; ``get_value(x1, x2)``
+        -> the (N1, N2) cross matrix; ``diag=True`` -> the row-wise values.
+        Runs on ``device`` (default: the CUDA card) in ``dtype`` (default
+        float64).
+        """
+        return self.value_tensor(x1, x2, diag, device, dtype) \
+            .cpu().numpy().copy()
 
 
 class _operator(Kernel):

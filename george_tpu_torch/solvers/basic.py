@@ -1,33 +1,22 @@
 # -*- coding: utf-8 -*-
 """Dense Cholesky solver.
 
-The API (compute / apply_inverse / dot_solve / log_determinant / computed)
-is george's BasicSolver.  The covariance build runs through the torch kernel
-evaluators; the factorization is ``torch.linalg.cholesky_ex`` (cuSOLVER on
-the card), which the JAX package likewise leaves to its compiler.
+The API (compute / apply_inverse / dot_solve / apply_sqrt / get_inverse /
+log_determinant / computed) is george's BasicSolver.  The covariance build
+runs through the torch kernel evaluators (on the card, large stationary
+builds through the tiled kernel of ``ops/cov.py``); the factorization is
+``torch.linalg.cholesky_ex`` (cuSOLVER on the card), which the JAX package
+likewise leaves to its compiler.  Arrays come in and go out as numpy;
+:attr:`factor` is the lower factor as a tensor on the solver's device.
 """
 
 import numpy as np
 import torch
 from scipy.linalg import LinAlgError
 
-from ..dsl import compiler
+from ..ops import linalg
 
-__all__ = ["BasicSolver", "build_covariance"]
-
-
-def build_covariance(node, theta, x, diag_noise):
-    """``K(x, x) + diag(diag_noise)`` as one (differentiable) tensor."""
-    K = compiler.kernel_value_fn(node)(theta, x, x)
-    return K + torch.diag(diag_noise)
-
-
-def cholesky_logdet(K):
-    """Lower Cholesky factor and log-determinant; raises if not PD."""
-    L, info = torch.linalg.cholesky_ex(K)
-    if int(info) != 0:
-        raise LinAlgError("covariance matrix is not positive definite")
-    return L, 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+__all__ = ["BasicSolver"]
 
 
 class BasicSolver(object):
@@ -53,6 +42,11 @@ class BasicSolver(object):
     def log_determinant(self):
         return self._log_det
 
+    @property
+    def factor(self):
+        """The lower Cholesky factor L (K = L L^T), a tensor."""
+        return self._factor
+
     def _tensor(self, a):
         return torch.as_tensor(np.array(a, dtype=np.float64),
                                device=self.device).to(self.dtype)
@@ -67,25 +61,38 @@ class BasicSolver(object):
             include_frozen=True
         ))
         with torch.no_grad():
-            K = build_covariance(self.kernel.spec_node(), theta, x,
-                                 self._tensor(diag_noise))
-            L, logdet = cholesky_logdet(K)
+            L, logdet = linalg.factor_fn(self.kernel.spec_node())(
+                theta, x, self._tensor(diag_noise))
+        # cholesky_ex reports failure through a NaN log-determinant; surface
+        # it as the LinAlgError the GP's quiet=... contract expects.
         if not bool(torch.isfinite(logdet)):
             raise LinAlgError("covariance matrix is not positive definite")
         self._factor = L
         self._log_det = float(logdet)
         self.computed = True
 
-    def apply_inverse(self, y):
-        """Solve K x = y for a vector or (N, K) matrix y (numpy out)."""
-        y = self._tensor(y)
-        col = y[:, None] if y.ndim == 1 else y
-        out = torch.cholesky_solve(col, self._factor)
-        return (out[:, 0] if y.ndim == 1 else out).cpu().numpy()
+    def apply_inverse(self, y, in_place=False):
+        """Solve K x = y for a vector (N,) or a matrix (N, K); with
+        ``in_place`` a numpy ``y`` of the result's shape is overwritten and
+        returned."""
+        out = linalg.solve_fn(self._factor, self._tensor(y)).cpu().numpy()
+        if in_place and isinstance(y, np.ndarray) and y.shape == out.shape:
+            y[...] = out
+            return y
+        return out.astype(np.float64)
 
     def dot_solve(self, y):
-        """The inner product y^T K^{-1} y for a vector y."""
-        y = self._tensor(y)
-        z = torch.linalg.solve_triangular(self._factor, y[:, None],
-                                          upper=False)
-        return float(torch.sum(z * z))
+        """y^T K^-1 y: a float for a vector, a (K, K) array for a matrix."""
+        out = linalg.dot_solve_fn(self._factor, self._tensor(y))
+        return float(out) if out.dim() == 0 else out.cpu().numpy()
+
+    def apply_sqrt(self, r):
+        """Apply the Cholesky square root: ``r @ L^T`` (rows of r acquire
+        covariance K)."""
+        return linalg.apply_sqrt_fn(self._factor, self._tensor(r)) \
+            .cpu().numpy().astype(np.float64)
+
+    def get_inverse(self):
+        """The dense K^-1 (gradients and diagnostics only)."""
+        return linalg.inverse_fn(self._factor).cpu().numpy() \
+            .astype(np.float64)

@@ -1,10 +1,11 @@
 # -*- coding: utf-8 -*-
-"""The CUDA code generated for kernel trees (``dsl/cuda_codegen.py``),
-compiled with the host C++ compiler against a stub of the CUDA qualifiers
-(``tests/cuda_host/cuda_host_stub.h``), against the port's torch kernel
-builder: values, and the forward-mode tangents of ``Dual<double, P>``
-against autograd, including r2 = 0 on the diagonal.  Skips without a host
-compiler."""
+"""The CUDA code generated for kernel trees and for the radial functions of
+stationary leaves (``dsl/cuda_codegen.py``), compiled with the host C++
+compiler against a stub of the CUDA qualifiers
+(``tests/cuda_host/cuda_host_stub.h``), against the port's torch builders:
+values, slopes, and the forward-mode tangents of ``Dual<double, P>``
+against autograd and the specs' ``grad:`` entries, including r2 = 0.
+Skips without a host compiler."""
 
 import ctypes
 import os
@@ -17,6 +18,7 @@ import torch
 
 from george_tpu_torch import kernels as tk
 from george_tpu_torch.dsl import compiler, cuda_codegen
+from george_tpu_torch.dsl.specs import available_kernels
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "george_tpu_torch", "csrc")
@@ -152,3 +154,124 @@ def test_primal_ops_and_unsupported_trees():
     general = tk.ExpSquaredKernel(metric=[[1.0, 0.1], [0.1, 2.0]], ndim=2)
     with pytest.raises(cuda_codegen.CodegenError, match="metric type 2"):
         cuda_codegen.generate(general.spec_node())
+
+
+# -- the radial functions of the tiled covariance kernel ----------------------
+
+def _radials():
+    """Every stationary spec, as a leaf (its metric and axes do not enter
+    the radial function)."""
+    return {
+        "exp": tk.ExpKernel(1.0),
+        "exp_squared": tk.ExpSquaredKernel(1.0),
+        "matern32": tk.Matern32Kernel(1.0),
+        "matern52": tk.Matern52Kernel(1.0),
+        "rational_quadratic": tk.RationalQuadraticKernel(log_alpha=0.3,
+                                                         metric=1.0),
+    }
+
+
+_RADIAL_EVAL = """
+extern "C" void radial_{name}(const double* p, const double* r2, int m,
+                              double* value, double* slope,
+                              double* tangent) {{
+  for (int i = 0; i < m; ++i) {{
+    value[i] = gt::r_{name}::radial_value<double, double>(p, r2[i]);
+    slope[i] = gt::r_{name}::radial_slope<double>(p, r2[i]);
+  }}
+{tangents}
+}}
+"""
+
+_RADIAL_TANGENTS = """
+  using D = gt::Dual<double, {np}>;
+  D pd[{np}];
+  for (int q = 0; q < {np}; ++q) {{
+    pd[q] = gt::constant<double, {np}>(p[q]);
+    pd[q].d[q] = 1.0;
+  }}
+  for (int i = 0; i < m; ++i) {{
+    D k = gt::r_{name}::radial_value<double, D>(pd, r2[i]);
+    for (int q = 0; q < {np}; ++q) tangent[i * {np} + q] = k.d[q];
+  }}
+"""
+
+
+@pytest.fixture(scope="module")
+def radial_library(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    out = tmp_path_factory.mktemp("radial")
+    parts = ['#include "cuda_host_stub.h"', '#include "dual.cuh"']
+    for name, k in _radials().items():
+        leaf = k.spec_node()
+        with open(os.path.join(out, name + ".cuh"), "w") as f:
+            f.write(cuda_codegen.generate_radial(leaf,
+                                                 namespace="r_" + name))
+        tangents = _RADIAL_TANGENTS.format(name=name, np=leaf.nparams) \
+            if leaf.nparams else "  (void)tangent;"
+        parts += ['#include "{0}.cuh"'.format(name), "#undef GT_RADIAL_NP",
+                  _RADIAL_EVAL.format(name=name, tangents=tangents)]
+    src = os.path.join(out, "radials.cpp")
+    with open(src, "w") as f:
+        f.write("\n".join(parts))
+    lib = os.path.join(out, "radials.so")
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-I",
+         os.path.join(HERE, "cuda_host"), "-I", str(out), "-o", lib, src],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return ctypes.CDLL(lib)
+
+
+@pytest.mark.parametrize("name", sorted(_radials()))
+def test_generated_radial_matches_torch(radial_library, name):
+    """Value against the torch ``_radial_fn``, slope against the spec's
+    ``grad: r2`` (and autograd of the bare value away from r2 = 0, where
+    the Exp slope is guarded to 0), tangents against the spec's parameter
+    ``grad:`` entries and autograd."""
+    from george_tpu_torch.ops import cov
+
+    leaf = _radials()[name].spec_node()
+    npar = leaf.nparams
+    r2 = np.array([0.0, 1e-20, 1e-6, 0.3, 1.0, 2.5, 9.0, 40.0])
+    p = np.full(max(npar, 1), 0.3)
+    m = len(r2)
+    value, slope = np.empty(m), np.empty(m)
+    tangent = np.empty((m, max(npar, 1)))
+    dbl = ctypes.POINTER(ctypes.c_double)
+    getattr(radial_library, "radial_" + name)(
+        p.ctypes.data_as(dbl), r2.ctypes.data_as(dbl), m,
+        value.ctypes.data_as(dbl), slope.ctypes.data_as(dbl),
+        tangent.ctypes.data_as(dbl))
+
+    radial = compiler._radial_fn(leaf.name, leaf.constants)
+    pt = torch.tensor(p[:npar], requires_grad=True)
+    rt = torch.tensor(r2, requires_grad=True)
+    k = radial(pt, rt)
+    np.testing.assert_allclose(value, k.detach().numpy(), rtol=1e-13)
+    spec_slope, spec_grads = cov._spec_fns(leaf.name, leaf.constants)
+    np.testing.assert_allclose(
+        slope, np.broadcast_to(spec_slope(pt.detach(), rt.detach())
+                               .numpy(), (m,)), rtol=1e-13)
+    assert np.all(np.isfinite(slope))
+    # The spec's slope against autograd of its bare value: away from
+    # r2 = 0 (where sqrt's derivative diverges) they are one function.
+    spec = available_kernels()[leaf.name]
+    bare = compiler._compile_scalar_fn(spec, dict(leaf.constants), ("r2",),
+                                       spec.value)
+    away = r2 > 1e-3
+    ra = torch.tensor(r2[away], requires_grad=True)
+    d_r2, = torch.autograd.grad(bare(pt.detach(), ra).sum(), ra)
+    np.testing.assert_allclose(slope[away], d_r2.numpy(), rtol=1e-12)
+    if npar:
+        ref = np.stack([np.broadcast_to(g(pt.detach(), rt.detach()).numpy(),
+                                        (m,)) for g in spec_grads], axis=1)
+        np.testing.assert_allclose(tangent[:, :npar], ref, rtol=1e-12,
+                                   atol=1e-15)
+        jac = torch.autograd.functional.jacobian(
+            lambda q: radial(q, rt.detach()), pt.detach()).numpy()
+        np.testing.assert_allclose(tangent[:, :npar], jac, rtol=1e-12,
+                                   atol=1e-15)
+    assert cuda_codegen.radial_ops(leaf)[0] >= 1

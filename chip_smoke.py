@@ -4,7 +4,7 @@
 
     python3 chip_smoke.py
 
-Four paths, each through the entry points a user calls, each over
+Five paths, each through the entry points a user calls, each over
 hand-written CUDA kernels:
 
 * the main path: the hyperparameter posterior of ``1.0 *
@@ -27,7 +27,14 @@ hand-written CUDA kernels:
   stationary covariance build a launch of the tiled build kernel and every
   gradient one of its VJP (``csrc/stationary_cov.cu``); config #5's kernel
   at N = 8192 and the vmapped dense sampler density at N = 1024 over the
-  same kernels.
+  same kernels;
+* the blocked dense engine (``config.dense_mxu_sampling = True``, the JAX
+  package's MXU engine): config #5's posterior at N = 256 through
+  ``build_gp_log_prob(method="dense")`` and ChEES over 1024 chains, every
+  value+gradient a batched build, cuBLAS products and one launch of the
+  spine kernel (``csrc/dense_spine.cu``) per 128-wide panel; and the
+  batched A B^T benchmark (``tools/batched_mm.py``, the port of
+  ``benchmarks/pallas_batched_mm.py``) over ``csrc/batched_mmT.cu``.
 
 Phases (any failure exits non-zero):
 
@@ -79,7 +86,34 @@ Phases (any failure exits non-zero):
 14. timing of the covariance kernels and their plain versions at
     N = 16384 (d = 1) and N = 8192 (d = 2), their float32 errors at
     N = 16384, and ``GP.compute`` at N = 16384 split into build, factor
-    and the rest, beside ``cholesky_ex`` alone.
+    and the rest, beside ``cholesky_ex`` alone;
+15. the spine kernel against its plain version on config #5's first
+    diagonal blocks at N = 256 over 4096 chains, four made non positive
+    definite (float64 within 1e-9 of each chain's largest |T| and of
+    |logdet|; float32 T within twice the float32 plain version's error,
+    logdet within the reference's kernel tolerance; NaN exactly on the
+    non-PD chains), and the batched product against its plain version at
+    B = 4096, N = 128 (float32 within 16 ulps of |a_i| |b_j| at 1, 8, 32
+    and 64 chains a block, float64 within 1e-12 of it);
+16. the blocked engine through ``build_gp_log_prob`` (engine
+    ``cuda_dense_mxu``) against float64 with the plain spine: config #5 at
+    N = 200, 256 and 384 over 4096 chains and N = 512 over 1024 (float64
+    at rtol 1e-9, float32 at the reference's kernel tolerances, one spine
+    launch per panel), the general metric and a sum with a frozen
+    parameter at N = 300, rejected points (-inf, zero gradient), one call
+    with TF32 allowed globally (the same bits), and the float64 engine
+    against the plain autograd density;
+17. posterior fidelity (BENCH_NOTES.md's TPU finding, measured here):
+    ChEES over config #5 at N = 256, 1024 chains, 150 + 600 iterations,
+    on the blocked and on the fused engine from seeds of their own:
+    divergences, split R-hat, the means within 5 combined MC standard
+    errors, the stds within 10%, printed beside the TPU's table;
+18. ``tools/batched_mm.py``'s measurement at B = 4096, N = 128;
+19. timing: the spine (kernel, plain version, ``cholesky_ex`` +
+    ``solve_triangular``), the blocked engine's value+gradient at
+    B = 4096, N = 256 split into build, factor, inverse, ll and the
+    reverse pass beside the fused engine, and the batched product beside
+    its plain version and ``torch.matmul``.
 
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
@@ -166,6 +200,40 @@ K32_ULPS = 8
 # ROUTE_FLOOR_ULPS float32 ulps of the quantity's largest magnitude.
 ROUTE_FACTOR = 2.0
 ROUTE_FLOOR_ULPS = 16
+
+# The blocked dense engine (benchmarks/config5.py's model, config5_data's
+# inputs): value and gradient against float64 at (N, chains) each, the
+# general metric and a sum with a frozen parameter at MXU_TREE_N, and the
+# posterior-fidelity ChEES pair at FID_N (BENCH_NOTES.md "MXU dense engine
+# posterior fidelity": N = 256, ChEES, the same posterior).
+MXU_SHAPES = ((200, 4096), (256, 4096), (384, 4096), (512, 1024))
+MXU_TREE_N = 300
+MXU_TREE_CHAINS = 1024
+# float64 runs of the engine in slices of this many chains (the float64
+# build's autograd residuals at N = 384 and 4096 chains exceed 40 GB).
+MXU_SLICE = 1024
+SPINE_CHAINS = 4096
+FID_N = 256
+FID_CHAINS = 1024
+FID_SAMPLES = 600
+FID_MAX_LEAPFROG = 32
+# The JAX package's TPU run of that pair (BENCH_NOTES.md, ChEES, 512-1024
+# chains x 300 draws): (mean, std) per parameter, printed beside the
+# port's; they are the reference's TPU numbers, not the port's.
+TPU_FIDELITY = {
+    "dense_mxu (TPU)": ((-0.094, -7.987, -1.256, 2.027, 3.468),
+                        (0.467, 1.495, 0.368, 0.371, 0.360)),
+    "xla_dense (TPU)": ((-0.123, -8.054, -0.753, 2.443, 3.849),
+                        (0.678, 1.480, 0.593, 0.511, 0.495)),
+    "CPU x64 oracle": ((-0.116, -8.066, -0.757, 2.438, 3.843),
+                       (0.654, 1.50, 0.600, 0.516, 0.499)),
+}
+# The batched product (benchmarks/pallas_batched_mm.py's defaults).
+MM_B, MM_N, MM_REP = 4096, 128, 20
+# float32 products within MM_ULPS float32 ulps of |a_i| |b_j| (a dot
+# product of length N rounds within ~sqrt(N) / 2 ulps of that, typically);
+# float64 within 1e-12 of it.
+MM_ULPS = 16
 
 
 def log(*args):
@@ -1244,6 +1312,556 @@ def time_cov(dev, card, path_launches, err_f, err_b):
                  plain_ms=bp_ms, bound_ms=bb, bound_by=bby)]
 
 
+# -- slice 4: the blocked dense engine and the batched product ------------------
+
+def spine_ops(n=128):
+    """Operations of one chain in csrc/dense_spine.cu, from its loops: the
+    Cholesky (per pivot a sqrt, a log, the column's divisions and the
+    trailing update's multiply-adds) and the in-place inverse (per column a
+    reciprocal, the rows' multiply-adds and scalings)."""
+    chol = sum(2 + (n - k - 1) + (n - k - 1) * (n - k) for k in range(n))
+    trtri = sum(1 + (n - j - 1) * (n - j) + (n - j - 1) for j in range(n))
+    return chol + trtri
+
+
+def spine_bytes(B, itemsize=4, n=128):
+    """S's lower triangle read once (nothing reads above it), T and logdet
+    written once."""
+    return itemsize * B * (n * (n + 1) // 2 + n * n + 1)
+
+
+def spine_bound(B, itemsize=4, n=128):
+    """The bytes above and the operations above."""
+    return _bound(spine_bytes(B, itemsize, n), B * spine_ops(n))
+
+
+def mm_bound(B, n, itemsize=4):
+    """A and B read once, O written once; 2 B N^3 operations."""
+    return _bound(itemsize * 3 * B * n * n, 2.0 * B * n ** 3)
+
+
+def mxu_instances():
+    """(label, dtype, instance) of the spine and batched-product kernels."""
+    import torch
+    from george_tpu_torch.ops import batched_mm, dense_mxu
+
+    return [(label, dt, make(dt)) for label, make in (
+        ("dense spine", dense_mxu.spine_instance),
+        ("batched mmT", batched_mm.instance))
+        for dt in (torch.float32, torch.float64)]
+
+
+def mxu_lp(gp, x, y, yerr, dev, **kw):
+    """``build_gp_log_prob(method="dense")`` with the blocked engine opted
+    in: (log_prob, theta0), the engine checked to be cuda_dense_mxu."""
+    from george_tpu_torch import config
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    config.dense_mxu_sampling = True
+    try:
+        lp, theta0 = build_gp_log_prob(gp, x, y, yerr, method="dense",
+                                       device=dev, **kw)
+    finally:
+        config.dense_mxu_sampling = False
+    check(lp.engine == "cuda_dense_mxu", "N={0}: engine {1}".format(
+        len(x), lp.engine))
+    return lp, theta0
+
+
+def sliced(fn, theta):
+    """``fn`` over slices of MXU_SLICE chains, concatenated."""
+    import torch
+
+    outs = [fn(theta[i:i + MXU_SLICE])
+            for i in range(0, theta.shape[0], MXU_SLICE)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def first_block(vg, theta):
+    """The engine's first 128 x 128 diagonal block of K for each chain."""
+    import torch
+
+    n_scalar = vg.n_mean + vg.n_wn
+    with torch.no_grad():
+        K = vg.build(theta[:, n_scalar:],
+                     theta[:, vg.n_mean] if vg.n_wn else None,
+                     vg.data(theta))
+    return K[:, :128, :128].contiguous()
+
+
+def check_spine(dev, vg, theta):
+    """Phase 15a: the spine kernel against ``spine_torch`` on the engine's
+    first diagonal blocks (config #5 at N = 256) over SPINE_CHAINS chains,
+    four of them made non positive definite.  float64 within 1e-9 of each
+    chain's largest |T| and 1e-9 |logdet|; float32 T within twice the
+    float32 plain version's error (plus 4 ulps of |T|) and logdet within
+    the reference's kernel tolerance 1e-4 |logdet| + 1e-2.  Returns (S64,
+    the float32 kernel's largest error)."""
+    import torch
+    from george_tpu_torch.ops import dense_mxu
+
+    S = first_block(vg, theta)
+    B = S.shape[0]
+    bad_rows = [B // 300, B // 20, B * 4 // 5]
+    for b in bad_rows:
+        S[b, 64, 64] = -1.0                 # a negative pivot at 64
+    S[B - 96, 0, 0] = 0.0                   # a zero first pivot
+    bad = torch.zeros(B, dtype=torch.bool, device=dev)
+    bad[bad_rows + [B - 96]] = True
+    T_ref, ld_ref = dense_mxu.spine_torch(S)
+    Tp, _ = dense_mxu.spine_torch(S.float())
+    ok = ~bad
+    scale = T_ref[ok].abs().amax(dim=(1, 2))
+    p_err = float(((Tp.double()[ok] - T_ref[ok]).abs().amax(dim=(1, 2))
+                   / scale).max())
+    err32 = 0.0
+    for dtype in (torch.float64, torch.float32):
+        launches = dense_mxu.spine.launches
+        T, ld = dense_mxu.spine(S.to(dtype).contiguous())
+        torch.cuda.synchronize()
+        T, ld = T.double(), ld.double()
+        nan_ok = bool(torch.equal(torch.isnan(ld), bad)) and \
+            bool(torch.all(torch.isnan(T[bad]))) and \
+            bool(torch.all(torch.isfinite(T[ok])))
+        t_err = (T[ok] - T_ref[ok]).abs().amax(dim=(1, 2)) / scale
+        l_err = (ld[ok] - ld_ref[ok]).abs()
+        if dtype == torch.float64:
+            good = bool(torch.all(t_err <= 1e-9)) and \
+                bool(torch.all(l_err <= 1e-9 * ld_ref[ok].abs()))
+        else:
+            good = float(t_err.max()) <= 2 * p_err + 4 * EPS32 and \
+                bool(torch.all(l_err <= 1e-4 * ld_ref[ok].abs() + 1e-2))
+            err32 = max(float((T[ok] - T_ref[ok]).abs().max()),
+                        float(l_err.max()))
+        check(nan_ok and good and dense_mxu.spine.launches == launches + 1,
+              "spine {0} B={1}: max |T err| / max |T| {2:.3e} (float32 "
+              "plain version {3:.3e}), max |logdet err| {4:.3e} (|logdet| "
+              "up to {5:.4g}); NaN exactly on the {6} non-PD chains".format(
+                  str(dtype).split(".")[-1], S.shape[0], float(t_err.max()),
+                  p_err, float(l_err.max()), float(ld_ref[ok].abs().max()),
+                  int(bad.sum())))
+    return S, err32
+
+
+def check_mm(dev):
+    """Phase 15b: the batched product against its plain version at the
+    benchmark's inputs (B = MM_B, N = MM_N), float32 at each chain count
+    and float64.  Returns the float32 kernel's largest error."""
+    import torch
+    from george_tpu_torch.ops import batched_mm
+
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(rng.standard_normal((MM_B, MM_N, MM_N)), device=dev)
+    b = torch.as_tensor(rng.standard_normal((MM_B, MM_N, MM_N)), device=dev)
+    ref = batched_mm.batched_mmT_torch(a, b)
+    scale = torch.linalg.norm(a, dim=2)[:, :, None] \
+        * torch.linalg.norm(b, dim=2)[:, None, :]
+    a32, b32 = a.float(), b.float()
+    p_err = float(((batched_mm.batched_mmT_torch(a32, b32).double() - ref)
+                   .abs() / scale).max())
+    err32 = 0.0
+    for dtype, chains in ((torch.float64, (1, 8)),
+                          (torch.float32, batched_mm.CHAINS_PER_BLOCK)):
+        for c in chains:
+            out = batched_mm.batched_mmT(a.to(dtype), b.to(dtype), c)
+            torch.cuda.synchronize()
+            e = (out.double() - ref).abs()
+            rel = float((e / scale).max())
+            if dtype == torch.float64:
+                good = rel <= 1e-12
+            else:
+                good = rel <= MM_ULPS * EPS32
+                err32 = max(err32, float(e.max()))
+            check(good and bool(torch.all(torch.isfinite(out))),
+                  "batched mmT {0} B={1} N={2}, {3} chains a block: max "
+                  "|err| / (|a_i| |b_j|) {4:.3e} ({5:.2f} float32 ulps; the "
+                  "float32 plain version {6:.2f})".format(
+                      str(dtype).split(".")[-1], MM_B, MM_N, c, rel,
+                      rel / EPS32, p_err / EPS32))
+    return err32
+
+
+def check_mxu_case(vg, theta, what, panels):
+    """The engine in float32 and float64 on the card against float64 with
+    the plain spine: float64 at rtol 1e-9, float32 at the reference's
+    kernel tolerances; NaN rows the same in all.  One spine launch per
+    panel per call.  Returns the float32 errors (ll, grad)."""
+    import torch
+    from george_tpu_torch.ops import dense_mxu
+
+    t64 = theta.to(torch.float64).contiguous()
+    ll_ref, g_ref = sliced(lambda t: vg.value_and_grad(
+        t, spine_fn=dense_mxu.spine_torch), t64)
+    failed = torch.isnan(ll_ref)
+    ok = ~failed
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        launches = dense_mxu.spine.launches
+        if dtype == torch.float64:
+            ll, g = sliced(vg, t64)
+            calls = -(-theta.shape[0] // MXU_SLICE)
+        else:
+            ll, g = vg(theta.to(dtype).contiguous())
+            calls = 1
+        torch.cuda.synchronize()
+        launched = dense_mxu.spine.launches - launches
+        ll, g = ll.double(), g.double()
+        same_failures = bool(torch.equal(torch.isnan(ll), failed))
+        lr, gr, lk, gk = ll_ref[ok], g_ref[ok], ll[ok], g[ok]
+        finite = bool(torch.all(torch.isfinite(lk)) and
+                      torch.all(torch.isfinite(gk)))
+        e_ll, e_g = (lk - lr).abs(), (gk - gr).abs()
+        if dtype == torch.float64:
+            good = bool(torch.all(e_ll <= 1e-9 * lr.abs())) and \
+                bool(torch.all(e_g <= 1e-9 * gr.abs() + 1e-9))
+        else:
+            good = within_reference_tolerance(lk, gk, lr, gr)
+            errs = (float(e_ll.max()), float(e_g.max()))
+        check(finite and good and same_failures and
+              launched == panels * calls,
+              "{0} {1}: max |ll err| {2:.3e}, max |grad err| {3:.3e} (|ll| "
+              "up to {4:.4g}); {5} spine launches ({6} panels x {7} calls)"
+              "{8}".format(what, str(dtype).split(".")[-1],
+                           float(e_ll.max()), float(e_g.max()),
+                           float(lr.abs().max()), launched, panels, calls,
+                           "; {0} failed factorizations in all".format(
+                               int(failed.sum())) if failed.any() else ""))
+    return errs
+
+
+def mxu_trees():
+    """(label, GP keywords, parameter to freeze, input dimension) of the
+    engine's tree cases: the general metric and tests/test_dense_mxu.py's
+    sum with a frozen parameter."""
+    from george_tpu_torch import kernels as k
+
+    wn = dict(white_noise=np.log(1e-3), fit_white_noise=True)
+    return (
+        ("general metric", dict(kernel=1.0 * k.ExpSquaredKernel(
+            metric=[[1.0, 0.1], [0.1, 2.0]], ndim=2), **wn), None, 2),
+        ("sum, frozen parameter", dict(kernel=1.0 * k.Matern32Kernel(
+            metric=[1.0, 2.0], ndim=3, axes=[0, 2])
+            + 0.5 * k.ExpSquaredKernel(metric=2.0, ndim=3, axes=[1]), **wn),
+         "kernel:k2:k1:log_constant", 3),
+    )
+
+
+def run_mxu_engine(dev):
+    """Phases 15-16: the spine and the batched product against their plain
+    versions, then the engine through ``build_gp_log_prob`` at every shape
+    of MXU_SHAPES, on the tree cases, on rejected points, once with TF32
+    allowed, and the float64 engine against the plain autograd density.
+    Returns (spine float32 error, batched product float32 error, the
+    engine at config #5 N = 256: (gp, vg, theta float32))."""
+    import torch
+    import george_tpu_torch as george
+    from george_tpu_torch import kernels as k
+
+    gp5 = config5_gp(dev)
+    engines = {}
+    for n, chains in MXU_SHAPES:
+        x, y, yerr = config5_data(n)
+        lp, _ = mxu_lp(gp5, x, y, yerr, dev)
+        th = torch.as_tensor(full_thetas(gp5, lp.dense_mxu_vg.active, 13,
+                                         chains, 0.2), device=dev)
+        engines[n] = (lp, th)
+
+    log("  15a: the spine kernel")
+    lp256, th256 = engines[256]
+    S, spine_err = check_spine(dev, lp256.dense_mxu_vg, th256)
+    del S
+    log("  15b: the batched product")
+    mm_err = check_mm(dev)
+    torch.cuda.empty_cache()
+
+    log("  16: the engine against float64 with the plain spine")
+    for n, chains in MXU_SHAPES:
+        lp, th = engines[n]
+        check_mxu_case(lp.dense_mxu_vg, th, "config #5 N={0} B={1}".format(
+            n, chains), lp.dense_mxu_vg.panels)
+        torch.cuda.empty_cache()
+    for label, kw, freeze, ndim in mxu_trees():
+        g = george.GP(device=dev, **kw)
+        if freeze:
+            g.freeze_parameter(freeze)
+        x, y, yerr = config5_data(MXU_TREE_N, seed=31)
+        lp, _ = mxu_lp(g, x[:, :ndim], y, yerr, dev)
+        vg = lp.dense_mxu_vg
+        th = torch.as_tensor(full_thetas(g, vg.active, 37, MXU_TREE_CHAINS,
+                                         0.15), device=dev)
+        check_mxu_case(vg, th, "{0} N={1} B={2} active={3}".format(
+            label, MXU_TREE_N, MXU_TREE_CHAINS, vg.active), vg.panels)
+
+    # Rejected points through the entry point's batched_value_and_grad: a
+    # log amplitude of 1000 (the factorization fails) and a metric out of
+    # its bounds read -inf with a zero gradient.
+    gb = george.GP(2.0 * k.ExpSquaredKernel(
+        metric=1.0, metric_bounds=[(-2.0, 2.0)], ndim=3, axes=[1]),
+        white_noise=np.log(1e-3), fit_white_noise=True, device=dev)
+    x, y, yerr = config5_data(200, seed=41)
+    lpb, thb = mxu_lp(gb, x, y, yerr, dev, dtype=torch.float32)
+    rows = torch.stack([thb, thb, thb])
+    rows[1, -1] = 5.0
+    rows[2, 1] = 1000.0
+    lp_b, g_b = lpb.batched_value_and_grad(rows)
+    full = torch.as_tensor(np.tile(gb.get_parameter_vector(
+        include_frozen=True), (3, 1)), device=dev, dtype=torch.float32)
+    full[:, 1:] = rows
+    ll_raw, _ = lpb.dense_mxu_vg(full)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lp_b[0])) and
+          bool(torch.all(torch.isneginf(lp_b[1:]))) and
+          bool(torch.all(g_b[1:] == 0)) and bool(torch.isnan(ll_raw[2])),
+          "rejected points: out of bounds and a failed factorization read "
+          "-inf with a zero gradient (the engine's own ll NaN at the "
+          "latter)")
+
+    # TF32 allowed globally: the engine scopes full FP32 for its call, so
+    # its results carry the same bits, and the caller's switch survives.
+    vg256 = lp256.dense_mxu_vg
+    t32 = th256.float().contiguous()
+    m = torch.backends.cuda.matmul
+    m.allow_tf32 = True
+    try:
+        l_tf, g_tf = vg256(t32)
+        after = m.allow_tf32
+    finally:
+        m.allow_tf32 = False
+    l_ie, g_ie = vg256(t32)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(l_tf, l_ie)) and bool(torch.equal(g_tf, g_ie))
+          and after is True,
+          "TF32 allowed globally: the engine's float32 results are the same "
+          "bits, and allow_tf32 reads True again after the call")
+
+    # The float64 engine against the plain density (one Cholesky, autograd
+    # through it) on the entry point's log_prob.
+    lpp, _ = mxu_lp(gp5, *config5_data(256), dev)
+    tha = th256[:256, list(vg256.active)].contiguous()
+    lp_k, g_k = lpp.batched_value_and_grad(tha)
+    th_req = tha.clone().requires_grad_(True)
+    lp_p = lpp(th_req)
+    g_p, = torch.autograd.grad(lp_p.sum(), th_req)
+    lp_p = lp_p.detach()
+    check(bool(torch.all((lp_k - lp_p).abs() <= 1e-9 * lp_p.abs())) and
+          bool(torch.all((g_k - g_p).abs() <= 1e-9 * g_p.abs() + 1e-9)),
+          "float64 engine against the plain autograd density, config #5 "
+          "N=256 B=256: max |lp err| {0:.3e}, max |grad err| {1:.3e}".format(
+              float((lp_k - lp_p).abs().max()),
+              float((g_k - g_p).abs().max())))
+    del engines
+    torch.cuda.empty_cache()
+    return spine_err, mm_err, (gp5, vg256, t32)
+
+
+def run_fidelity(dev, card):
+    """Phase 17: ChEES over config #5's posterior at N = FID_N, FID_CHAINS
+    chains, float32, on the blocked engine (dense_mxu_sampling on) and on
+    the fused engine (off), each from its own seed and start, so that the
+    two runs are independent draws of one posterior (from one seed and
+    start the chains would keep nearly the same trajectories, and the
+    comparison would re-measure the value+gradient agreement of phase 16).
+    Gates: each run divergences < 1% and split R-hat < 1.01; the two
+    posterior means within 5 combined Monte Carlo standard errors and the
+    stds within 10%.  Returns the spine's launches in the blocked engine's
+    run."""
+    import torch
+    from george_tpu_torch import config
+    from george_tpu_torch.ops import dense, dense_mxu
+    from george_tpu_torch.samplers import (build_gp_log_prob,
+                                           effective_sample_size,
+                                           split_rhat)
+
+    x, y, yerr = config5_data(FID_N)
+    gp5 = config5_gp(dev)
+    prior = bench_prior(gp5, dev, torch.float32)
+    runs = {}
+    for label, switch, engine, counter, seed in (
+            ("blocked", True, "cuda_dense_mxu", dense_mxu.spine, 2),
+            ("fused", False, "cuda_dense", dense.dense_vg, 1)):
+        config.dense_mxu_sampling = switch
+        try:
+            lp, theta0 = build_gp_log_prob(gp5, x, y, yerr, method="dense",
+                                           log_prior=prior, device=dev,
+                                           dtype=torch.float32)
+        finally:
+            config.dense_mxu_sampling = False
+        check(lp.engine == engine, "{0} run: engine {1}".format(
+            label, lp.engine))
+        z0 = theta0 + 0.1 * torch.as_tensor(
+            np.random.default_rng(seed).standard_normal(
+                (FID_CHAINS, len(theta0))), device=dev, dtype=theta0.dtype)
+        (res, seconds, launches), = run_chees(
+            lp, z0, (seed,), counter, dev, num_warmup=WARMUP,
+            num_samples=FID_SAMPLES, num_leapfrog=FID_MAX_LEAPFROG,
+            block_size=BLOCK, warmup_block_size=BLOCK)
+        per_call = 2 if label == "blocked" else 1
+        samples = res.samples.double()
+        div = float(res.diverging.double().mean())
+        rhat = float(split_rhat(samples).max())
+        ess = effective_sample_size(samples)
+        check(launches == per_call * res.num_evaluations and
+              bool(torch.all(torch.isfinite(res.samples))) and
+              div < 0.01 and rhat < 1.01,
+              "{0} engine: {1} kernel launches for {2} value+gradient calls, "
+              "divergence fraction {3:.5f} < 0.01, max split R-hat {4:.5f} < "
+              "1.01, min ESS {5:.1f}, {6:.2f} s ({7:.2f} leapfrogs per draw, "
+              "step size {8:.4f}); on {9}".format(
+                  label, launches, res.num_evaluations, div, rhat,
+                  float(ess.min()), seconds,
+                  float(res.n_leapfrog.double().mean()),
+                  float(res.step_size), card))
+        flat = samples.reshape(-1, samples.shape[-1])
+        runs[label] = (flat.mean(0), flat.std(0), flat.std(0) /
+                       torch.sqrt(ess), launches)
+    (m_b, s_b, se_b, launches), (m_f, s_f, se_f, _) = runs["blocked"], \
+        runs["fused"]
+    gap = (m_b - m_f).abs()
+    bound = 5.0 * torch.sqrt(se_b ** 2 + se_f ** 2)
+    ratio = s_b / s_f
+    for label, (mean, std) in list(TPU_FIDELITY.items()) + [
+            ("cuda_dense_mxu (H100)", (m_b.tolist(), s_b.tolist())),
+            ("cuda_dense (H100)", (m_f.tolist(), s_f.tolist()))]:
+        log("  {0:24s} mean {1}  std {2}".format(
+            label, " ".join("{0:8.4f}".format(v) for v in mean),
+            " ".join("{0:7.4f}".format(v) for v in std)))
+    check(bool(torch.all(gap <= bound)) and
+          bool(torch.all((ratio - 1).abs() <= 0.10)),
+          "posterior of the blocked engine against the fused engine: mean "
+          "gaps {0} within 5 combined MC standard errors {1} ({2} sd of the "
+          "fused run); std ratios {3} within 10%".format(
+              np.round(gap.cpu().numpy(), 5), np.round(bound.cpu().numpy(), 5),
+              np.round((gap / s_f).cpu().numpy(), 4),
+              np.round(ratio.cpu().numpy(), 4)))
+    return launches
+
+
+def load_tool(name):
+    """A script of tools/ as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "tool_" + name, os.path.join(HERE, "tools", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_batched_mm(card):
+    """Phase 18: tools/batched_mm.py's measurement at B = MM_B, N = MM_N,
+    the kernel's launch count set to 0 just before and read just after.
+    Returns ({name: (ms, TFLOP/s)}, launches)."""
+    from george_tpu_torch.ops import batched_mm
+
+    tool = load_tool("batched_mm")
+    batched_mm.batched_mmT.launches = 0
+    lines = tool.measure(MM_B, MM_N, MM_REP)
+    launches = batched_mm.batched_mmT.launches
+    kernels = [k for k in lines if k.startswith("kernel")]
+    check(launches == (MM_REP + 1) * len(kernels),
+          "tools/batched_mm.py: {0} kernel launches ({1} chain counts x {2} "
+          "repetitions + 1 warm-up)".format(launches, len(kernels), MM_REP))
+    for name, (ms, tflops) in lines.items():
+        log("  {0:12s}: {1:7.3f} ms  {2:6.2f} TFLOP/s (B={3}, N={4}; on {5})"
+            .format(name, ms, tflops, MM_B, MM_N, card))
+    return lines, launches
+
+
+def time_mxu(dev, card, engine, mm_lines):
+    """Phase 19: the spine at SPINE_CHAINS (kernel, plain version, the
+    two-call library pair), the engine's float32 value+gradient at config
+    #5 N = 256 split into its stages, the fused engine at the same shape,
+    and the batched product's plain version beside its kernel and library
+    times.  Returns the timing of (spine, batched product) for the JSON
+    line."""
+    import torch
+    from george_tpu_torch import config
+    from george_tpu_torch.ops import batched_mm, dense_mxu
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    gp5, vg, t32 = engine
+    S = first_block(vg, t32)
+    eye = torch.eye(128, device=dev)
+    sp_ms, sp_min = median_ms(lambda: dense_mxu.spine(S), reps=20)
+    sp_plain, _ = median_ms(lambda: dense_mxu.spine_torch(S), reps=10)
+    sp_lib, _ = median_ms(lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky_ex(S)[0], eye.expand_as(S), upper=False),
+        reps=10)
+    sp_bound, sp_by = spine_bound(S.shape[0])
+    S64 = S.double()
+    sp64_ms, _ = median_ms(lambda: dense_mxu.spine(S64), reps=10)
+    sp64_plain, _ = median_ms(lambda: dense_mxu.spine_torch(S64), reps=10)
+    sp64_lib, _ = median_ms(lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky_ex(S64)[0], eye.double().expand_as(S64),
+        upper=False), reps=10)
+    log("  spine float64 B={0}: median {1:.4f} ms over 10 launches; plain "
+        "version {2:.4f} ms; library pair {3:.4f} ms; its bytes take "
+        "{4:.4f} ms at {5:.2f} TB/s; on {6}".format(
+            S.shape[0], sp64_ms, sp64_plain, sp64_lib,
+            1e3 * spine_bytes(S.shape[0], 8) / PEAK_BYTES, PEAK_BYTES / 1e12,
+            card))
+    del S64
+    log("  spine float32 B={0}: median {1:.4f} ms (min {2:.4f}) over 20 "
+        "launches; plain version {3:.4f} ms; library pair cholesky_ex + "
+        "solve_triangular {4:.4f} ms; bound {5:.4f} ms set by {6} ({7} "
+        "operations a chain); kernel at {8:.1%} of the bound; on {9}".format(
+            S.shape[0], sp_ms, sp_min, sp_plain, sp_lib, sp_bound, sp_by,
+            spine_ops(), sp_bound / sp_ms, card))
+    del S
+
+    stages = {}
+    for _ in range(6):
+        marks = []
+
+        def hook(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vg.value_and_grad(t32, stage=hook)
+        torch.cuda.synchronize()
+        prev = start
+        for name, e in marks:
+            stages.setdefault(name, []).append(prev.elapsed_time(e))
+            prev = e
+    split = {k: float(np.median(v[1:])) for k, v in stages.items()}
+    total = sum(split.values())
+    mx_ms, _ = median_ms(lambda: vg(t32), reps=10)
+    config.dense_mxu_sampling = False
+    lpd, _ = build_gp_log_prob(gp5, *config5_data(FID_N), method="dense",
+                               device=dev)
+    check(lpd.engine == "cuda_dense", "fused engine at N={0}: {1}".format(
+        FID_N, lpd.engine))
+    fd_ms, _ = median_ms(lambda: lpd.dense_vg(t32), reps=10)
+    log("  blocked engine float32 value+gradient B={0} N={1}: median {2:.3f} "
+        "ms over 10 calls; stages (median of 5) {3} = {4:.3f} ms; the fused "
+        "engine (cuda_dense) at the same shape {5:.3f} ms; on {6}".format(
+            t32.shape[0], FID_N, mx_ms, ", ".join(
+                "{0} {1:.3f} ms ({2:.0%})".format(k, v, v / total)
+                for k, v in split.items()), total, fd_ms, card))
+
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(rng.standard_normal((MM_B, MM_N, MM_N)), device=dev,
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal((MM_B, MM_N, MM_N)), device=dev,
+                        dtype=torch.float32)
+    mm_plain, _ = median_ms(lambda: batched_mm.batched_mmT_torch(a, b),
+                            reps=20)
+    best = min((k for k in mm_lines if k.startswith("kernel")),
+               key=lambda k: mm_lines[k][0])
+    mm_b, mm_by = mm_bound(MM_B, MM_N)
+    log("  batched mmT float32 B={0} N={1}: best kernel {2} {3:.4f} ms; "
+        "plain version (einsum) {4:.4f} ms; library torch.matmul {5:.4f} "
+        "ms; bound {6:.4f} ms set by {7}; kernel at {8:.1%} of the bound; "
+        "on {9}".format(MM_B, MM_N, best, mm_lines[best][0], mm_plain,
+                        mm_lines["matmul"][0], mm_b, mm_by,
+                        mm_b / mm_lines[best][0], card))
+    return ((sp_ms, sp_plain, sp_lib, sp_bound, sp_by),
+            (mm_lines[best][0], mm_plain, mm_lines["matmul"][0], mm_b, mm_by))
+
+
 # -- the phases ----------------------------------------------------------------
 
 def run(dev, card):
@@ -1327,7 +1945,7 @@ def run(dev, card):
                        ("dense path", dense_main)] +
                       [("dense zoo " + name, lp.dense_vg)
                        for name, (_, lp) in dzoo.items()])
-    built += cov_instances()
+    built += cov_instances() + mxu_instances()
     keys = {inst.key() for _, _, inst in built}
     zoo_built = [b for b in instances([("kalman zoo " + name, v)
                                        for name, (_, v) in zoo_vgs.items()])
@@ -1621,6 +2239,28 @@ def run(dev, card):
           "events)")
     cov_lines = time_cov(dev, card, gp_path, cov_err_f, cov_err_b)
 
+    # -- phases 15-16: the blocked dense engine ---------------------------------
+    phase("15-16: the spine and the batched product against their plain "
+          "versions; the blocked dense engine at N = {0} to {1}".format(
+              MXU_SHAPES[0][0], MXU_SHAPES[-1][0]))
+    spine_err, mm_err, engine = run_mxu_engine(dev)
+
+    # -- phase 17: posterior fidelity ------------------------------------------
+    phase("17: posterior fidelity at N={0}, ChEES over {1} chains, blocked "
+          "against fused engine".format(FID_N, FID_CHAINS))
+    spine_launches = run_fidelity(dev, card)
+
+    # -- phase 18: the batched-product benchmark ------------------------------
+    phase("18: tools/batched_mm.py at B={0}, N={1}".format(MM_B, MM_N))
+    mm_lines, mm_launches = run_batched_mm(card)
+
+    # -- phase 19: timing of the slice's kernels --------------------------------
+    phase("19: timing of the spine, the blocked engine and the batched "
+          "product (CUDA events)")
+    (sp_ms, sp_plain, sp_lib, sp_bound, sp_by), \
+        (mm_ms, mm_plain, mm_lib, mm_b, mm_by) = time_mxu(dev, card, engine,
+                                                        mm_lines)
+
     kernels_line += [{
         "name": "kalman_vg (streaming, N > 32768)",
         "route": "cuda",
@@ -1645,7 +2285,32 @@ def run(dev, card):
         "bound_ms": d_bound,
         "bound_by": d_by,
         "library_ms": None,
-    }] + cov_lines
+    }] + cov_lines + [{
+        "name": "dense_spine",
+        "route": "cuda",
+        "source": "george_tpu_torch/csrc/dense_spine.cu",
+        "replaces": "george_tpu/ops/dense_mxu.py:96",
+        "launches": spine_launches,
+        "max_abs_err": spine_err,
+        "ms": sp_ms,
+        "plain_ms": sp_plain,
+        "bound_ms": sp_bound,
+        "bound_by": sp_by,
+        "library_ms": sp_lib,
+    }, {
+        "name": "batched_mmT",
+        "route": "cuda",
+        "source": "george_tpu_torch/csrc/batched_mmT.cu",
+        "replaces": "benchmarks/pallas_batched_mm.py:75, "
+                    "benchmarks/pallas_batched_mm.py:124",
+        "launches": mm_launches,
+        "max_abs_err": mm_err,
+        "ms": mm_ms,
+        "plain_ms": mm_plain,
+        "bound_ms": mm_b,
+        "bound_by": mm_by,
+        "library_ms": mm_lib,
+    }]
     return kernels_line
 
 

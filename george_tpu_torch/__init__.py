@@ -4,8 +4,9 @@
 Gaussian-process regression with the YAML kernel DSL, the ``GP`` object,
 and a sampler layer whose hot paths, the batched value and gradient of the
 state-space (Kalman) and small dense likelihoods, are CUDA kernels written
-by hand for Hopper (``csrc/kalman_vg.cu``, ``csrc/dense_vg.cu``); large
-stationary covariance builds and their gradients go through a third
+by hand for Hopper (``csrc/kalman_vg.cu``, ``csrc/dense_vg.cu``, and the
+spine of the opt-in blocked dense engine, ``csrc/dense_spine.cu``); large
+stationary covariance builds and their gradients go through another
 (``csrc/stationary_cov.cu``).  Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """

@@ -25,14 +25,15 @@ pallas_min_elements = 1 << 20
 # CPU; the CPU here always takes the plain version.)
 pallas_dense = "auto"
 
-# N at and above which the JAX package's router prefers its MXU hybrid
-# (``dense_mxu``) over the lanes kernel, when ``dense_mxu_sampling`` opts
-# in.  That engine is not ported yet (ROADMAP Queue B 3): on the card such
-# a route raises, on the CPU it takes the plain dense density.
+# N at and above which the dense router prefers the blocked engine
+# (``ops/dense_mxu.py``, the JAX package's MXU hybrid: batched matrix
+# products around the CUDA spine kernel ``csrc/dense_spine.cu``, N <= 512,
+# every metric type) over the fused engine, when ``dense_mxu_sampling``
+# opts in.
 dense_mxu_min_n = 129
 
-# Whether the sampler router may pick the MXU hybrid at all (opt-in in the
-# JAX package after its posterior-fidelity finding).
+# Whether the sampler router may pick the blocked engine at all (opt-in in
+# the JAX package after its posterior-fidelity finding on the TPU).
 dense_mxu_sampling = False
 
 # Emit a one-line warning (logging.getLogger("george_tpu_torch")) when a

@@ -28,6 +28,7 @@
 //   2. right-looking Cholesky, column by column (scale, then the trailing
 //      update), L over K's lower triangle; log det from the pivots;
 //   3. S = L^-1 in place, column by column from the last (LAPACK's trti2);
+//      steps 2 and 3 are block_chol.cuh's, shared with dense_spine.cu;
 //   4. z = S r, alpha = S^T z, r^T K^-1 r = |z|^2;
 //   5. K^-1 = S^T S into the strict upper triangle and a diagonal vector
 //      (S stays below, so every entry is one independent dot product);
@@ -61,6 +62,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "block_chol.cuh"
 #include "dual.cuh"
 #include "dense_tree.cuh"
 
@@ -151,30 +153,9 @@ dense_vg_kernel(const T* __restrict__ theta, const T* __restrict__ x,
   }
   __syncthreads();
 
-  // 2. Cholesky.  Every thread reads the same pivot, so the failure test
-  // (and the early exit) is uniform over the block.
-  T logdet = T(0);
-  bool failed = false;
-  for (int k = 0; k < n; ++k) {
-    const T d = M[(size_t)k * ld + k];
-    if (!(d > T(0))) {
-      failed = true;
-      break;
-    }
-    const T lkk = sqrt(d);
-    logdet += log(d);
-    for (int i = k + 1 + tid; i < n; i += DV_THREADS)
-      M[(size_t)i * ld + k] /= lkk;
-    __syncthreads();
-    if (tid == 0) M[(size_t)k * ld + k] = lkk;
-    for (int i = k + 1 + warp; i < n; i += DV_WARPS) {
-      const T lik = M[(size_t)i * ld + k];
-      for (int j = k + 1 + lane; j <= i; j += 32)
-        M[(size_t)i * ld + j] -= lik * M[(size_t)j * ld + k];
-    }
-    __syncthreads();
-  }
-  if (failed) {
+  // 2. Cholesky (block_chol.cuh); a failed pivot exits the whole block.
+  T logdet;
+  if (!block::cholesky<T, DV_THREADS>(M, n, ld, &logdet)) {
     if (tid == 0) {
       ll[b] = T(NAN);
       for (int a = 0; a < NA; ++a) jac[(size_t)a * B + b] = T(NAN);
@@ -182,31 +163,8 @@ dense_vg_kernel(const T* __restrict__ theta, const T* __restrict__ x,
     return;
   }
 
-  // 3. S = L^-1 in place: S_ij = -S_jj sum_{k=j+1..i} S_ik L_kj.
-  for (int j = n - 1; j >= 0; --j) {
-    for (int i = j + 1 + tid; i < n; i += DV_THREADS)
-      sz[i] = M[(size_t)i * ld + j];
-    __syncthreads();
-    const T sjj = T(1) / M[(size_t)j * ld + j];
-    for (int i = j + 1 + tid; i < n; i += DV_THREADS) {
-      // The longest of these dot products (row n - 1) sets the depth of
-      // the whole inverse: four partial sums break its dependency chain.
-      T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
-      const T* row = M + (size_t)i * ld;
-      int k = j + 1;
-      for (; k + 3 <= i; k += 4) {
-        a0 += row[k] * sz[k];
-        a1 += row[k + 1] * sz[k + 1];
-        a2 += row[k + 2] * sz[k + 2];
-        a3 += row[k + 3] * sz[k + 3];
-      }
-      for (; k <= i; ++k) a0 += row[k] * sz[k];
-      M[(size_t)i * ld + j] = -sjj * ((a0 + a1) + (a2 + a3));
-    }
-    __syncthreads();
-    if (tid == 0) M[(size_t)j * ld + j] = sjj;
-  }
-  __syncthreads();
+  // 3. S = L^-1 in place (block_chol.cuh), column j of L staged in sz.
+  block::invert_lower<T, DV_THREADS>(M, n, ld, sz);
 
   // 4. z = S r, then alpha = S^T z.
   for (int i = tid; i < n; i += DV_THREADS) {

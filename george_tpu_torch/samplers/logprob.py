@@ -5,8 +5,9 @@
 dataset into a batched, differentiable ``log_prob(theta_active)`` and, where
 a fused engine applies, attaches ``log_prob.batched_value_and_grad``: on the
 state-space route the fused Kalman value+gradient, on the dense route the
-fused dense value+gradient (each the CUDA kernel for tensors on the card,
-its plain PyTorch version for tensors on the CPU), wrapped with the bounds
+fused dense value+gradient or, with ``config.dense_mxu_sampling``, the
+blocked dense engine (each over CUDA kernels for tensors on the card, its
+plain PyTorch version for tensors on the CPU), wrapped with the bounds
 prior, the NaN guards and the optional extra prior — the exact semantics of
 ``vmap(value_and_grad(log_prob))``.
 """
@@ -19,14 +20,10 @@ import torch
 from .. import config
 from .._device import resolve_device
 from ..modeling import CallableModel, ConstantModel
-from ..ops import dense, kalman
+from ..ops import dense, dense_mxu, kalman
 from ..ops import state_space as sskf
 
 __all__ = ["build_gp_log_prob", "traceable_model_fn"]
-
-# The JAX package's MXU hybrid takes dense posteriors up to this N
-# (dense_mxu.MXU_MAX_N) when config.dense_mxu_sampling opts in.
-_MXU_MAX_N = 512
 
 _NOT_PORTED = {
     "state_space_parallel": "the associative-scan filter (ROADMAP Queue A "
@@ -277,11 +274,18 @@ def _engine_note(reason, what="dense sampler path: falling back to the "
 
 def _attach_dense_vg(log_prob, gp, node, x_host, y_host, yerr2, theta_full0,
                      unfrozen, lo, hi, log_prior, device):
-    """Attach the fused batched dense value+gradient where it applies: N <=
-    256, metric types 0/1, mean and white noise scalar or parameter-free
-    (the JAX package's ``_attach_pallas_dense_vg``, same envelope and
-    notes).  Where that router would pick its MXU hybrid (not ported,
-    ROADMAP Queue B 3), the card raises and the CPU keeps the plain route.
+    """Attach a fused batched dense value+gradient where one applies (the
+    JAX package's ``_attach_pallas_dense_vg``, same envelopes and notes):
+
+      * the fused engine (:mod:`..ops.dense`) for N below
+        ``config.dense_mxu_min_n`` and metric types 0/1, and over its whole
+        envelope (N <= 256) while ``config.dense_mxu_sampling`` is off;
+      * with ``config.dense_mxu_sampling`` on, the blocked engine
+        (:mod:`..ops.dense_mxu`) for N up to 512 wherever the fused one is
+        not taken: from ``dense_mxu_min_n`` for metric types 0/1, at any
+        N for the general metric.
+
+    Both require mean and white noise scalar or parameter-free.
     """
     if config.pallas_dense == "never":
         return
@@ -289,7 +293,8 @@ def _attach_dense_vg(log_prob, gp, node, x_host, y_host, yerr2, theta_full0,
         raise ValueError("config.pallas_dense must be 'auto' or 'never', got "
                          "{0!r}".format(config.pallas_dense))
     n = len(x_host)
-    mxu_ok = config.dense_mxu_sampling and n <= _MXU_MAX_N
+    mxu_ok = config.dense_mxu_sampling and dense_mxu.supports_dense_mxu(node,
+                                                                        n)
     fused = dense.supports_dense(node, n) \
         and (n < config.dense_mxu_min_n or not mxu_ok)
     if not fused and not mxu_ok:
@@ -314,22 +319,21 @@ def _attach_dense_vg(log_prob, gp, node, x_host, y_host, yerr2, theta_full0,
     active = tuple(int(i) for i in unfrozen.tolist())
     if not active:
         return
-    if not fused:
-        if device.type == "cuda":
-            raise NotImplementedError(
-                "N={0}: config.dense_mxu_sampling routes this posterior to "
-                "the MXU dense engine (dense_mxu._spine_kernel, ROADMAP "
-                "Queue B 3), which is not ported yet; turn "
-                "config.dense_mxu_sampling off or use device='cpu'".format(n))
-        return
-    vg_core = dense.make_dense_batched_vg(node, x_host, y_eff, v_eff, n_mean,
-                                          n_wn, active)
+    if fused:
+        vg_core = dense.make_dense_batched_vg(node, x_host, y_eff, v_eff,
+                                              n_mean, n_wn, active)
+        log_prob.dense_vg = vg_core
+        engine = "dense"
+    else:
+        vg_core = dense_mxu.make_dense_mxu_vg(node, x_host, y_eff, v_eff,
+                                              n_mean, n_wn, active)
+        log_prob.dense_mxu_vg = vg_core
+        engine = "dense_mxu"
     log_prob.batched_value_and_grad = _finish_batched_vg(
         vg_core, theta_full0, unfrozen, lo, hi, log_prior
     )
-    log_prob.dense_vg = vg_core
-    log_prob.engine = "cuda_dense" if device.type == "cuda" \
-        else "torch_dense"
+    log_prob.engine = ("cuda_" if device.type == "cuda" else "torch_") \
+        + engine
 
 
 def _finish_batched_vg(vg_core, theta_full0, unfrozen, lo, hi, log_prior):

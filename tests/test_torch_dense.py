@@ -257,21 +257,23 @@ def test_routing_engines_and_notes(caplog):
     finally:
         tconfig.engine_log, tconfig.pallas_dense = old
 
-    # Where the JAX package's router would take its MXU engine (opt-in,
-    # 129 <= N): the card raises (not ported), the CPU takes the plain route.
+    # Where the JAX package's router takes its MXU engine (opt-in,
+    # 129 <= N <= 512): the blocked engine, "cuda_dense_mxu" on the card and
+    # "torch_dense_mxu" on the CPU.
     x3, y3, yerr3 = _dataset(n=130, d=3)
     gp = george_tpu_torch.GP(device="cpu", **_config5(tk))
     old = tconfig.dense_mxu_sampling
     try:
         tconfig.dense_mxu_sampling = True
         lp4, _ = torch_build(gp, x3, y3, yerr3, method="dense", device="cpu")
-        assert lp4.engine == "torch_dense_autograd"
+        assert lp4.engine == "torch_dense_mxu"
         from george_tpu_torch.samplers import logprob
-        with pytest.raises(NotImplementedError, match="Queue B 3"):
-            logprob._attach_dense_vg(
-                lp4, gp, gp.kernel.spec_node(), x3, y3, yerr3 ** 2,
-                None, torch.arange(5), None, None, None,
-                torch.device("cuda"))
+        lo, hi = (torch.as_tensor(a) for a in logprob._bounds_arrays(gp))
+        logprob._attach_dense_vg(
+            lp4, gp, gp.kernel.spec_node(), x3, y3, yerr3 ** 2,
+            torch.as_tensor(gp.get_parameter_vector(include_frozen=True)),
+            torch.arange(5), lo, hi, None, torch.device("cuda"))
+        assert lp4.engine == "cuda_dense_mxu"
     finally:
         tconfig.dense_mxu_sampling = old
 

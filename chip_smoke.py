@@ -41,7 +41,8 @@ Phases (any failure exits non-zero):
 1. device and build: the card's name and power limit, every kernel
    instantiation built from the checkout's sources (one ``nvcc`` each, all
    in parallel; the Kalman zoo's in the background until phase 10), the
-   ``-Xptxas -v`` register / shared-memory / spill lines;
+   ``-Xptxas -v`` register / shared-memory / spill lines, and the dynamic
+   shared memory of the spine and batched-product kernels;
 2. Kalman kernel against its plain PyTorch version at full width
    (B = 16384, N = 1000);
 3. exactness across methods: the state-space density at theta0 equals the
@@ -92,9 +93,10 @@ Phases (any failure exits non-zero):
     definite (float64 within 1e-9 of each chain's largest |T| and of
     |logdet|; float32 T within twice the float32 plain version's error,
     logdet within the reference's kernel tolerance; NaN exactly on the
-    non-PD chains), and the batched product against its plain version at
-    B = 4096, N = 128 (float32 within 16 ulps of |a_i| |b_j| at 1, 8, 32
-    and 64 chains a block, float64 within 1e-12 of it);
+    non-PD chains; a ragged call of 301 chains the same bits), and the
+    batched product against its plain version at B = 4096, N = 128
+    (float32 within 16 ulps of |a_i| |b_j| at 1, 8, 32 and 64 chains a
+    block, float64 within 1e-12 of it);
 16. the blocked engine through ``build_gp_log_prob`` (engine
     ``cuda_dense_mxu``) against float64 with the plain spine: config #5 at
     N = 200, 256 and 384 over 4096 chains and N = 512 over 1024 (float64
@@ -109,11 +111,12 @@ Phases (any failure exits non-zero):
     divergences, split R-hat, the means within 5 combined MC standard
     errors, the stds within 10%, printed beside the TPU's table;
 18. ``tools/batched_mm.py``'s measurement at B = 4096, N = 128;
-19. timing: the spine (kernel, plain version, ``cholesky_ex`` +
-    ``solve_triangular``), the blocked engine's value+gradient at
-    B = 4096, N = 256 split into build, factor, inverse, ll and the
-    reverse pass beside the fused engine, and the batched product beside
-    its plain version and ``torch.matmul``.
+19. timing: the spine in float32 and float64 (kernel, plain version,
+    ``cholesky_ex`` + ``solve_triangular``, bound), the blocked engine's
+    value+gradient at B = 4096, N = 256 split into build, factor, inverse,
+    ll and the reverse pass beside the fused engine, and the batched
+    product at each chain count beside ``torch.matmul``, its plain version
+    and its bound.
 
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
@@ -133,8 +136,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
-# cores and HBM bandwidth.
+# cores, TF32 on the tensor cores (dense) and HBM bandwidth.
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 N = 1000
@@ -213,6 +217,9 @@ MXU_TREE_CHAINS = 1024
 # build's autograd residuals at N = 384 and 4096 chains exceed 40 GB).
 MXU_SLICE = 1024
 SPINE_CHAINS = 4096
+# A ragged chain count for the spine (not a multiple of the chains an SM
+# holds, nor of the card's 132 SMs).
+SPINE_RAGGED = 301
 FID_N = 256
 FID_CHAINS = 1024
 FID_SAMPLES = 600
@@ -334,8 +341,8 @@ def _block_of(dims, i):
     raise IndexError(i)
 
 
-def _bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+def _bound(nbytes, ops, peak=PEAK_FP32):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1315,10 +1322,12 @@ def time_cov(dev, card, path_launches, err_f, err_b):
 # -- slice 4: the blocked dense engine and the batched product ------------------
 
 def spine_ops(n=128):
-    """Operations of one chain in csrc/dense_spine.cu, from its loops: the
-    Cholesky (per pivot a sqrt, a log, the column's divisions and the
-    trailing update's multiply-adds) and the in-place inverse (per column a
-    reciprocal, the rows' multiply-adds and scalings)."""
+    """Operations of one chain's Cholesky and inverse, counted as a
+    column-by-column factor and inverse do them: the Cholesky (per pivot a
+    sqrt, a log, the column's divisions and the trailing update's
+    multiply-adds) and the inverse (per column a reciprocal, the rows'
+    multiply-adds and scalings).  The tiled kernel (csrc/tile_chol.cuh)
+    does ~40% more: whole diagonal tiles and the products by T_jj."""
     chol = sum(2 + (n - k - 1) + (n - k - 1) * (n - k) for k in range(n))
     trtri = sum(1 + (n - j - 1) * (n - j) + (n - j - 1) for j in range(n))
     return chol + trtri
@@ -1335,9 +1344,10 @@ def spine_bound(B, itemsize=4, n=128):
     return _bound(spine_bytes(B, itemsize, n), B * spine_ops(n))
 
 
-def mm_bound(B, n, itemsize=4):
-    """A and B read once, O written once; 2 B N^3 operations."""
-    return _bound(itemsize * 3 * B * n * n, 2.0 * B * n ** 3)
+def mm_bound(B, n):
+    """float32: A and B read once, O written once; 2 B N^3 operations three
+    times over (the kernel's 3xTF32 products) at the TF32 peak."""
+    return _bound(4 * 3 * B * n * n, 3 * 2.0 * B * n ** 3, PEAK_TF32)
 
 
 def mxu_instances():
@@ -1349,6 +1359,30 @@ def mxu_instances():
         ("dense spine", dense_mxu.spine_instance),
         ("batched mmT", batched_mm.instance))
         for dt in (torch.float32, torch.float64)]
+
+
+def mxu_smem_lines():
+    """The shared memory a block of the spine and batched-product kernels
+    takes (dynamic, so not in the ptxas lines), from their builds."""
+    import ctypes
+    from george_tpu_torch import _build
+
+    lines = []
+    for label, dt, inst in mxu_instances():
+        lib = _build.load(inst)
+        cfg = (ctypes.c_int * 5)()
+        fn = (lib.dense_spine_config if label == "dense spine"
+              else lib.batched_mmT_config)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
+        fn(cfg)
+        what = ("{0} bytes of shared memory a chain, built for {1} chains "
+                "an SM".format(cfg[3], cfg[4]) if label == "dense spine" else
+                "{0} bytes of shared memory a block with the 128-wide "
+                "tile, {1} with the 64-wide".format(cfg[3], cfg[4]))
+        lines.append("  {0} {1}: {2}".format(label, str(dt).split(".")[-1],
+                                             what))
+    return lines
 
 
 def mxu_lp(gp, x, y, yerr, dev, **kw):
@@ -1440,6 +1474,17 @@ def check_spine(dev, vg, theta):
                   str(dtype).split(".")[-1], S.shape[0], float(t_err.max()),
                   p_err, float(l_err.max()), float(ld_ref[ok].abs().max()),
                   int(bad.sum())))
+        # A chain count that fills no whole wave of the card: each chain is
+        # one block, so the first SPINE_RAGGED chains come out bit for bit.
+        Tr, ldr = dense_mxu.spine(S[:SPINE_RAGGED].to(dtype).contiguous())
+        torch.cuda.synchronize()
+        check(bool(torch.equal(Tr.double().nan_to_num(),
+                               T[:SPINE_RAGGED].nan_to_num())) and
+              bool(torch.equal(ldr.double().nan_to_num(),
+                               ld[:SPINE_RAGGED].nan_to_num())),
+              "spine {0} B={1}: the same bits as the first {1} chains of "
+              "the B={2} call".format(str(dtype).split(".")[-1],
+                                      SPINE_RAGGED, S.shape[0]))
     return S, err32
 
 
@@ -1794,19 +1839,21 @@ def time_mxu(dev, card, engine, mm_lines):
     sp64_lib, _ = median_ms(lambda: torch.linalg.solve_triangular(
         torch.linalg.cholesky_ex(S64)[0], eye.double().expand_as(S64),
         upper=False), reps=10)
+    sp64_bound, sp64_by = spine_bound(S.shape[0], 8)
     log("  spine float64 B={0}: median {1:.4f} ms over 10 launches; plain "
-        "version {2:.4f} ms; library pair {3:.4f} ms; its bytes take "
-        "{4:.4f} ms at {5:.2f} TB/s; on {6}".format(
-            S.shape[0], sp64_ms, sp64_plain, sp64_lib,
-            1e3 * spine_bytes(S.shape[0], 8) / PEAK_BYTES, PEAK_BYTES / 1e12,
-            card))
+        "version {2:.4f} ms; library pair {3:.4f} ms (kernel {4:.2f}x "
+        "faster); bound {5:.4f} ms set by {6}; kernel at {7:.1%} of the "
+        "bound; on {8}".format(
+            S.shape[0], sp64_ms, sp64_plain, sp64_lib, sp64_lib / sp64_ms,
+            sp64_bound, sp64_by, sp64_bound / sp64_ms, card))
     del S64
     log("  spine float32 B={0}: median {1:.4f} ms (min {2:.4f}) over 20 "
         "launches; plain version {3:.4f} ms; library pair cholesky_ex + "
-        "solve_triangular {4:.4f} ms; bound {5:.4f} ms set by {6} ({7} "
-        "operations a chain); kernel at {8:.1%} of the bound; on {9}".format(
-            S.shape[0], sp_ms, sp_min, sp_plain, sp_lib, sp_bound, sp_by,
-            spine_ops(), sp_bound / sp_ms, card))
+        "solve_triangular {4:.4f} ms (kernel {5:.2f}x faster); bound "
+        "{6:.4f} ms set by {7} ({8} operations a chain); kernel at {9:.1%} "
+        "of the bound; on {10}".format(
+            S.shape[0], sp_ms, sp_min, sp_plain, sp_lib, sp_lib / sp_ms,
+            sp_bound, sp_by, spine_ops(), sp_bound / sp_ms, card))
     del S
 
     stages = {}
@@ -1849,17 +1896,19 @@ def time_mxu(dev, card, engine, mm_lines):
                         dtype=torch.float32)
     mm_plain, _ = median_ms(lambda: batched_mm.batched_mmT_torch(a, b),
                             reps=20)
-    best = min((k for k in mm_lines if k.startswith("kernel")),
-               key=lambda k: mm_lines[k][0])
     mm_b, mm_by = mm_bound(MM_B, MM_N)
-    log("  batched mmT float32 B={0} N={1}: best kernel {2} {3:.4f} ms; "
-        "plain version (einsum) {4:.4f} ms; library torch.matmul {5:.4f} "
-        "ms; bound {6:.4f} ms set by {7}; kernel at {8:.1%} of the bound; "
-        "on {9}".format(MM_B, MM_N, best, mm_lines[best][0], mm_plain,
-                        mm_lines["matmul"][0], mm_b, mm_by,
-                        mm_b / mm_lines[best][0], card))
+    lib_ms = mm_lines["matmul"][0]
+    for c in batched_mm.CHAINS_PER_BLOCK:
+        ms = mm_lines["kernel{0}".format(c)][0]
+        log("  batched mmT float32 B={0} N={1}, {2} chains a block: {3:.4f} "
+            "ms (torch.matmul {4:.4f} ms, kernel {5:.2f}x faster); bound "
+            "{6:.4f} ms set by {7}; kernel at {8:.1%} of the bound; on "
+            "{9}".format(MM_B, MM_N, c, ms, lib_ms, lib_ms / ms, mm_b,
+                         mm_by, mm_b / ms, card))
+    log("  batched mmT plain version (einsum) {0:.4f} ms; on {1}".format(
+        mm_plain, card))
     return ((sp_ms, sp_plain, sp_lib, sp_bound, sp_by),
-            (mm_lines[best][0], mm_plain, mm_lines["matmul"][0], mm_b, mm_by))
+            (mm_lines["kernel1"][0], mm_plain, lib_ms, mm_b, mm_by))
 
 
 # -- the phases ----------------------------------------------------------------
@@ -1965,6 +2014,8 @@ def run(dev, card):
     t0 = time.time()
     _build.build_many([inst for _, _, inst in built])
     report(built, time.time() - t0)
+    for line in mxu_smem_lines():
+        log(line)
 
     # -- phase 2: Kalman kernel against the plain version --------------------
     phase("2: Kalman kernel against the plain version")

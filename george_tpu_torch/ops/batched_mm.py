@@ -7,9 +7,11 @@ with two TPU kernels (``make_chunk``, ``make_batchdim``).  Two
 implementations of it live here:
 
   * :func:`batched_mmT` — the hand-written CUDA kernel
-    (``csrc/batched_mmT.cu``): shared-memory tiles and FP32 FMAs, no tensor
-    cores; ``chains_per_block`` is the number of chains one thread block
-    takes in turn (the TPU script's chunk C).  Its ``launches`` attribute
+    (``csrc/batched_mmT.cu``): 128 x 128 output tiles, K-slices through a
+    three-stage ``cp.async`` ring, float32 on the tensor cores as three
+    TF32 products (3xTF32, float32 accuracy), float64 in FP64 FMAs;
+    ``chains_per_block`` is the number of chains one thread block takes
+    in turn (the TPU script's chunk C).  Its ``launches`` attribute
     counts kernel launches.
   * :func:`batched_mmT_torch` — the plain PyTorch version,
     ``torch.einsum("bij,bkj->bik")`` (the TPU script's ``xla`` baseline).
@@ -45,13 +47,13 @@ def _library(dtype):
     lib = _build.load(instance(dtype))
     if not getattr(lib, "_mm_checked", False):
         lib.batched_mmT_launch.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.batched_mmT_launch.restype = ctypes.c_int
         lib.batched_mmT_error_string.argtypes = [ctypes.c_int]
         lib.batched_mmT_error_string.restype = ctypes.c_char_p
         lib.batched_mmT_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.batched_mmT_config.restype = None
-        cfg = (ctypes.c_int * 3)()
+        cfg = (ctypes.c_int * 5)()
         lib.batched_mmT_config(cfg)
         size = torch.empty((), dtype=dtype).element_size()
         if cfg[0] != size:
@@ -103,12 +105,15 @@ def batched_mmT(a, b, chains_per_block=1):
     out = torch.empty_like(a)
     if nb == 0:
         return out
+    # 16-byte copies where every row starts on 16 bytes, word copies else.
+    vec = int(n * a.element_size() % 16 == 0 and a.data_ptr() % 16 == 0
+              and b.data_ptr() % 16 == 0)
     lib = _library(a.dtype)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.batched_mmT_launch(a.data_ptr(), b.data_ptr(),
                                      out.data_ptr(), nb, n,
-                                     chains_per_block, stream)
+                                     chains_per_block, vec, stream)
     if err != 0:
         raise RuntimeError("batched_mmT launch failed: {0}".format(
             lib.batched_mmT_error_string(err).decode()))

@@ -118,7 +118,7 @@ def _library(dtype):
         lib.dense_spine_error_string.restype = ctypes.c_char_p
         lib.dense_spine_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.dense_spine_config.restype = None
-        cfg = (ctypes.c_int * 3)()
+        cfg = (ctypes.c_int * 5)()
         lib.dense_spine_config(cfg)
         want = (PANEL, torch.empty((), dtype=dtype).element_size())
         if tuple(cfg)[:2] != want:
@@ -158,7 +158,9 @@ def spine(S):
     ``L = chol(S)`` (lower, zeros above), logdet = log det S; NaN in both
     for a chain whose factorization fails.
 
-    A CUDA tensor (contiguous, float32 or float64) launches the kernel on
+    A CUDA tensor (contiguous, 16-byte aligned, float32 or float64)
+    launches the kernel (``csrc/dense_spine.cu`` over the tiled Cholesky and
+    inverse of ``csrc/tile_chol.cuh``) on
     the current stream, without synchronisation; a CPU tensor takes
     :func:`spine_torch`.
     """
@@ -169,6 +171,9 @@ def spine(S):
         raise ValueError("no spine for device {0}".format(S.device))
     if not S.is_contiguous():
         raise ValueError("S must be contiguous")
+    if S.data_ptr() % 16:
+        raise ValueError("S must be 16-byte aligned (the kernel copies "
+                         "16-byte pieces)")
     B = S.shape[0]
     T = torch.empty_like(S)
     logdet = torch.empty(B, dtype=S.dtype, device=S.device)

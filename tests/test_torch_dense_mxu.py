@@ -366,7 +366,8 @@ def _cuda():
 @pytest.mark.gpu
 def test_cuda_spine_matches_plain_version():
     dev = _cuda()
-    S = _spd_blocks(300, seed=3)
+    # 301 chains: a count that is no multiple of the chains an SM holds.
+    S = _spd_blocks(301, seed=3)
     S[7, 64, 64] = -1.0
     S[8, 0, 0] = 0.0
     S64 = torch.as_tensor(S, device=dev)
@@ -393,7 +394,8 @@ def test_cuda_spine_matches_plain_version():
 def test_cuda_batched_mmT_matches_plain_version():
     dev = _cuda()
     rng = np.random.default_rng(4)
-    for nb, n, c in ((64, 128, 1), (9, 70, 32), (3, 300, 8)):
+    cases = [(64, 128, c) for c in batched_mm.CHAINS_PER_BLOCK]
+    for nb, n, c in cases + [(9, 70, 32), (3, 300, 8)]:
         a = torch.as_tensor(rng.standard_normal((nb, n, n)), device=dev)
         b = torch.as_tensor(rng.standard_normal((nb, n, n)), device=dev)
         ref = batched_mm.batched_mmT_torch(a, b)

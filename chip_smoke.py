@@ -52,15 +52,17 @@ Phases (any failure exits non-zero):
    divergences, split R-hat, agreement of the posterior means;
 5. timing of the Kalman kernel and its plain version (CUDA events);
 6. dense kernel against its plain version: config #5 at B = 4096, N = 128;
-   N = 136 and 256; a zoo at B = 256 with a failed factorization and an
-   out-of-bounds point;
-7. the dense path, ChEES from two seeds, with the same gates as phase 4;
+   N = 16 (one tile), 136, 192, 200, 208, 209 and 256 (float64's tiles in
+   shared memory up to 208, in device memory from 209); a zoo at B = 256
+   with a failed factorization and an out-of-bounds point;
+7. the dense path, ChEES from two seeds, with the same gates as phase 4,
+   and each run's wall time beside its launches times the kernel's time;
 8. the long series: float32 kernel against float64 kernel at B = 1024,
    float64 kernel against the plain version just above N = 32768, and a
    short ChEES run through the entry points;
-9. timing of the dense kernel (B = 4096, N = 128) and of the Kalman kernel
-   on the long series (B = 1024, N = 100,000), beside their bounds and plain
-   versions;
+9. timing of the dense kernel (B = 4096: float32 and float64 at N = 128,
+   float32 at N = 256) and of the Kalman kernel on the long series
+   (B = 1024, N = 100,000), beside their bounds and plain versions;
 10. the Kalman kernel on a zoo of kernels at B = 256 against its plain
     version;
 11. the covariance kernels against their plain versions: each stationary
@@ -136,8 +138,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor
-# cores, TF32 on the tensor cores (dense) and HBM bandwidth.
+# cores, FP64 and TF32 on the tensor cores (dense) and HBM bandwidth.
 PEAK_FP32 = 67e12
+PEAK_FP64 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
@@ -174,6 +177,13 @@ DENSE_MAX_LEAPFROG = 32
 REF_DENSE_ACCEPT = (0.7931, 0.8333)
 REF_DENSE_STEP_SIZE = (0.4331, 0.4553)
 REF_DENSE_LEAPFROGS_PER_DRAW = (4.62, 6.01)
+# Phase 6's other sizes (B = 512): one tile, padding, both sides of the
+# float64 tiles' shared-memory limit (91 tiles at N = 208, 105 at 209), and
+# the envelope's top.
+DENSE_SIZES = (16, 136, 192, 200, 208, 209, 256)
+DENSE_SMEM_LAST64 = 208
+# Phase 9's timed shapes at B = DENSE_CHAINS: (dtype, N).
+DENSE_TIMING = (("float32", 128), ("float64", 128), ("float32", 256))
 
 # The long series (benchmarks/kalman_stream.py).
 LONG_N = 100_000
@@ -359,12 +369,15 @@ def kalman_bound(spec, B, n, itemsize=4):
 
 
 def dense_ops(spec, n):
-    """Operations of one chain in csrc/dense_vg.cu, counted from its loops:
-    the covariance build (the generated tree's primal operations per
-    entry of the lower triangle), the Cholesky, the triangular inverse,
-    z = S r and alpha = S^T z, K^-1 = S^T S, and the gradient (the tree over
-    Dual<T, NA>, at least (1 + NA) times its primal operations, plus the
-    weight and NA multiply-adds per entry)."""
+    """Operations of one chain's value and gradient at the real n: the
+    covariance build (the generated tree's primal operations per entry of
+    the lower triangle), the Cholesky and the triangular inverse counted as
+    a column-by-column pair does them, z = S r and alpha = S^T z,
+    K^-1 = S^T S, and the gradient (the tree over Dual<T, NA>, at least
+    (1 + NA) times its primal operations, plus the weight and NA
+    multiply-adds per entry).  The tiled kernel (csrc/dense_vg.cu) does
+    more: whole diagonal tiles, the products by T_jj, the padding to a
+    multiple of 16."""
     from george_tpu_torch.dsl import cuda_codegen
 
     na = len(spec.active)
@@ -380,9 +393,13 @@ def dense_ops(spec, n):
 
 
 def dense_bound(spec, B, n, ndim, itemsize=4):
+    """The bytes (theta, x, y and v read once, ll and the gradient written
+    once) and the operations at the real n (the kernel's padding to a
+    multiple of 16 is its own choice) at the FP32 or FP64 peak."""
     na = len(spec.active)
     nbytes = itemsize * (B * spec.d_full + n * (ndim + 2) + B * (1 + na))
-    return _bound(nbytes, B * dense_ops(spec, n))
+    return _bound(nbytes, B * dense_ops(spec, n),
+                  PEAK_FP32 if itemsize == 4 else PEAK_FP64)
 
 
 def cov_fwd_bound(leaf, n1, n2, itemsize=4):
@@ -539,6 +556,45 @@ def compare_dense(vg, theta, what):
                   float(e_g.max()), float(lr.abs().max()),
                   int(failed.sum())))
     return err32
+
+
+def time_dense(dev, card, plain=True, reps=30):
+    """The dense kernel at B = DENSE_CHAINS over config #5's model at each
+    (dtype, N) of DENSE_TIMING (phase 6's inputs), beside its bound and,
+    with ``plain``, its plain version's time, over CUDA events.  Returns
+    [(dtype, N, ms, plain_ms, bound_ms, bound_by)].  tools/dense_vg_timing.py
+    runs it against the package of another checkout."""
+    import torch
+    from george_tpu_torch.ops import dense
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    gp5 = config5_gp(dev)
+    out = []
+    for name, n in DENSE_TIMING:
+        dtype = getattr(torch, name)
+        lp, _ = build_gp_log_prob(gp5, *config5_data(n), method="dense",
+                                  device=dev)
+        vg = lp.dense_vg
+        th = torch.as_tensor(full_thetas(gp5, vg.spec.active, 13,
+                                         DENSE_CHAINS, 0.2),
+                             device=dev).to(dtype).contiguous()
+        ms, ms_min = median_ms(lambda: vg(th), reps=reps)
+        plain_ms = median_ms(
+            lambda: dense.dense_vg_torch(vg.spec, th, *vg.data(th)),
+            reps=5, warmup=1)[0] if plain else None
+        bound, by = dense_bound(vg.spec, DENSE_CHAINS, n, 3,
+                                th.element_size())
+        log("  dense kernel {0} B={1} N={2}: median {3:.4f} ms (min {4:.4f}) "
+            "over {5} launches; plain version {6}; bound {7:.4f} ms set by "
+            "{8} ({9:.4g} operations a chain); kernel at {10:.1%} of the "
+            "bound; library call: none; on {11}".format(
+                name, DENSE_CHAINS, n, ms, ms_min, reps,
+                "not timed" if plain_ms is None else
+                "{0:.2f} ms over 5 calls".format(plain_ms),
+                bound, by, dense_ops(vg.spec, n), bound / ms, card))
+        out.append((name, n, ms, plain_ms, bound, by))
+        del th
+    return out
 
 
 def full_thetas(gp, active, rng_seed, count, scale):
@@ -1982,8 +2038,15 @@ def run(dev, card):
         log("  built {0} instantiations in {1:.2f} s (parallel nvcc)".format(
             len(built), seconds))
         for label, dt, inst in built:
-            lines = [line for line in _build.ptxas_report(inst)
-                     if "registers" in line or "spill" in line]
+            # A library may hold several kernels: each is labelled by its
+            # place in ptxas's order.
+            lines, k = [], 0
+            for line in _build.ptxas_report(inst):
+                if "entry function" in line:
+                    k += 1
+                    lines.append("kernel {0}:".format(k))
+                elif "registers" in line or "spill" in line:
+                    lines.append(line)
             log("  ptxas {0} {1}: {2}".format(
                 label, str(dt).split(".")[-1], " | ".join(lines)))
 
@@ -2115,7 +2178,7 @@ def run(dev, card):
         gp5, dense_main.spec.active, 13, DENSE_CHAINS, 0.2), device=dev)
     dense_err = compare_dense(dense_main, theta_dense, "dense path B={0} "
                               "N={1}".format(DENSE_CHAINS, DENSE_N))
-    for n in (136, 256):
+    for n in DENSE_SIZES:
         xe, ye, yerre = config5_data(n)
         lp_e, _ = build_gp_log_prob(gp5, xe, ye, yerre, method="dense",
                                     device=dev)
@@ -2123,6 +2186,13 @@ def run(dev, card):
         check(lp_e.engine == "cuda_dense" and vg_e.spec == dense_main.spec,
               "N={0}: engine {1}, the dense path's instantiation".format(
                   n, lp_e.engine))
+        ws64, ws32 = (dense._workspace_words(dense._library(vg_e.spec, dt),
+                                             n, vg_e.spec.d_full)
+                      for dt in (torch.float64, torch.float32))
+        check(ws32 == 0 and (ws64 == 0) == (n <= DENSE_SMEM_LAST64),
+              "N={0}: tiles in shared memory in float32, in {1} in "
+              "float64".format(n, "device memory ({0} words a chain)".format(
+                  ws64) if ws64 else "shared memory"))
         th = torch.as_tensor(full_thetas(gp5, vg_e.spec.active, 17, 512,
                                          0.2), device=dev)
         compare_dense(vg_e, th, "config #5 B=512 N={0}".format(n))
@@ -2172,6 +2242,18 @@ def run(dev, card):
                     card)
     means_agree([r[0] for r in druns])
     dense_launches = druns[0][2]
+    td32 = theta_dense.float().contiguous()
+    d_run_ms, _ = median_ms(lambda: dense_main(td32), reps=10)
+    for seed, (res, seconds, launches) in zip((1, 2), druns):
+        log("  seed {0}: wall {1:.2f} s for {2} launches; launches x kernel "
+            "time ({3:.4f} ms, B={4}) = {5:.2f} s ({6:.1%} of the wall); the "
+            "rest, {7:.2f} s, is host-driven leapfrog and adaptation, {8:.3f} "
+            "ms a call; on {9}".format(
+                seed, seconds, launches, d_run_ms, DENSE_CHAINS,
+                launches * d_run_ms / 1e3,
+                launches * d_run_ms / 1e3 / seconds,
+                seconds - launches * d_run_ms / 1e3,
+                (seconds * 1e3 - launches * d_run_ms) / launches, card))
 
     # -- phase 8: the long series ---------------------------------------------
     phase("8: the long series, N={0}".format(LONG_N))
@@ -2232,19 +2314,7 @@ def run(dev, card):
 
     # -- phase 9: dense and long-series timing ------------------------------------
     phase("9: timing of the dense kernel and the long series (CUDA events)")
-    td32 = theta_dense.float().contiguous()
-    d_ms, d_min = median_ms(lambda: dense_main(td32), reps=30)
-    d_plain, d_plain_min = median_ms(
-        lambda: dense.dense_vg_torch(dense_main.spec, td32,
-                                     *dense_main.data(td32)),
-        reps=5, warmup=1)
-    d_bound, d_by = dense_bound(dense_main.spec, DENSE_CHAINS, DENSE_N, 3)
-    log("  dense kernel float32 B={0} N={1}: median {2:.4f} ms (min {3:.4f}) "
-        "over 30 launches; plain version {4:.2f} ms (min {5:.2f}) over 5 "
-        "calls; bound {6:.4f} ms set by {7} ({8:.4g} operations per chain); "
-        "kernel at {9:.1%} of the bound; library call: none; on {10}".format(
-            DENSE_CHAINS, DENSE_N, d_ms, d_min, d_plain, d_plain_min, d_bound,
-            d_by, dense_ops(dense_main.spec, DENSE_N), d_bound / d_ms, card))
+    (_, _, d_ms, d_plain, d_bound, d_by), *_ = time_dense(dev, card)
     # The plain version's time is its one call of phase 8 (float64, B=2,
     # N=32769): a call at B=1024 and N=100,000 would take minutes and tens
     # of GB of autograd tape.

@@ -54,6 +54,8 @@
 #define SP_NB (SP_N / 16)
 #define SP_THREADS 256
 #define SP_WARPS (SP_THREADS / 32)
+static_assert(SP_NB - 1 <= SP_WARPS,
+              "tile::factor_invert's inverse takes one warp a tile");
 
 namespace gt {
 namespace spine {
@@ -104,7 +106,7 @@ spine_kernel(const T* __restrict__ S, T* __restrict__ Tout,
   // Cholesky and T = L^-1 over the tiles.  A failed pivot is seen by every
   // thread after one barrier, so the block exits as one.
   T ld;
-  if (!tile::factor_invert<T, SP_NB, SP_WARPS>(M, flag, ld)) {
+  if (!tile::factor_invert<T, SP_WARPS>(M, SP_NB, flag, ld)) {
     for (int e = tid; e < SP_N * SP_N; e += SP_THREADS) dst[e] = T(NAN);
     if (tid == 0) logdet[b] = T(NAN);
     return;

@@ -1,30 +1,35 @@
-// Tiled Cholesky factor and triangular inverse of one 128 x 128 symmetric
-// positive-definite matrix held by one thread block, for Hopper (sm_90a).
-// Used by csrc/dense_spine.cu; written so that csrc/dense_vg.cu can take
-// it in place of block_chol.cuh at N = 128.
+// Tiled Cholesky factor, triangular inverse and Gram product T^T T of one
+// symmetric positive-definite matrix of up to 16 x 16 tiles (N <= 256)
+// held by one thread block, for Hopper (sm_90a).  Used by
+// csrc/dense_spine.cu (factor and inverse at N = 128) and csrc/dense_vg.cu
+// (all three, at N = 16 to 256).
 //
-// The matrix lives in shared memory as its lower triangle of 16 x 16
-// tiles, packed: tile (i, j), i >= j, at index i (i + 1) / 2 + j, each tile
-// row-major with a padded row (Tile<T>::LD words: 20 in float32, 18 in
-// float64, so that the warps' 16-byte row reads below hit distinct banks).
+// The matrix lives as its lower triangle of 16 x 16 tiles, packed: tile
+// (i, j), i >= j, at index i (i + 1) / 2 + j, each tile row-major with a
+// padded row (Tile<T>::LD words: 20 in float32, 18 in float64, so that the
+// warps' 16-byte row reads below hit distinct banks), in shared memory or,
+// through the same generic pointer, in device memory (16-byte aligned).
 // The whole algorithm is tile operations, each done by one warp:
 //
-//   diag     the 16 x 16 diagonal tile factored and inverted in registers
-//            with warp shuffles (no block barrier): L_jj, T_jj = L_jj^-1,
-//            the log-pivots, and the failure test;
-//   nt / nn  a 16 x 16 x 16 product, C (+/-)= A B^T or C += A B, from
-//            16-byte shared-memory reads and FMAs in registers.
+//   diag       the 16 x 16 diagonal tile factored and inverted in registers
+//              with warp shuffles (no block barrier): L_jj, T_jj = L_jj^-1,
+//              the log-pivots, and the failure test;
+//   nt/nn/tn   a 16 x 16 x 16 product, C (+/-)= A B^T, C += A B or
+//              C += A^T B, from 16-byte (tn: 16- and 8-byte) shared-memory
+//              reads and FMAs in registers.
 //
-// factor_invert() runs a blocked right-looking Cholesky over the 8 panels
+// factor_invert() runs a blocked right-looking Cholesky over the nb panels
 // (per panel: L_ij = A_ij T_jj^T, then the trailing update
 // A_ik -= L_ij L_kj^T of the next panel's column, then the next diagonal
 // tile on one warp while the others finish the update; three block
-// barriers a panel), then
-// the blocked inverse in place, column by column from the right:
-// T_ij = -(sum_{k=j+1..i} T_ik L_kj) T_jj (two barriers a column): 36
-// block barriers at N = 128, where a column-by-column Cholesky and
-// inverse take two a pivot and two a column, 512.  Every thread of the
-// block calls factor_invert() with the same arguments.
+// barriers a panel), then the blocked inverse in place, column by column
+// from the right: T_ij = -(sum_{k=j+1..i} T_ik L_kj) T_jj, one warp a tile
+// of the column (so nb - 1 <= warps; two barriers a column).  gram() then
+// forms T^T T over the same tiles in place (a barrier a round of one tile
+// a warp).  At N = 128 (nb = 8, 8 warps) the factor and inverse take 36
+// block barriers, where a column-by-column Cholesky and inverse take two a
+// pivot and two a column, 512.  Every thread of the block calls each
+// function with the same arguments.
 
 #ifndef GT_TILE_CHOL_CUH
 #define GT_TILE_CHOL_CUH
@@ -62,8 +67,8 @@ template <> struct Tile<double> {
   }
 };
 
-// Words of one padded tile, and of the packed lower triangle of NB x NB
-// tiles.
+// Words of one padded tile, and of the packed lower triangle of nb x nb
+// tiles (a multiple of 16 bytes in both types).
 template <typename T>
 __host__ __device__ constexpr int tile_words() {
   return kSide * Tile<T>::LD;
@@ -193,6 +198,61 @@ __device__ __forceinline__ void put_nn(T* C, const T (&acc)[2][4], T s,
   }
 }
 
+// Two consecutive words (8 bytes in float32, 16 in float64), from and to
+// memory aligned to their size.
+template <typename T> struct Pair;
+template <> struct Pair<float> { typedef float2 V; };
+template <> struct Pair<double> { typedef double2 V; };
+
+template <typename T>
+__device__ __forceinline__ void load2(const T* p, T* out) {
+  const typename Pair<T>::V v = *reinterpret_cast<const typename Pair<T>::V*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, T a, T b) {
+  typename Pair<T>::V v;
+  v.x = a;
+  v.y = b;
+  *reinterpret_cast<typename Pair<T>::V*>(p) = v;
+}
+
+// The TN form: a lane holds rows 4 rg .. 4 rg + 3 (rg = lane / 8) and
+// columns 2 cp, 2 cp + 1 (cp = lane % 8) of the result, so that it reads
+// A's row k in one 16-byte piece (four of C's rows) and B's row k in one
+// pair; all 32 lanes read within one row of each tile, without bank
+// conflicts.  acc[t][u] += sum_k A[k][4 rg + t] B[k][2 cp + u].
+template <typename T>
+__device__ __forceinline__ void tn(T (&acc)[4][2], const T* A, const T* B,
+                                   int lane) {
+  constexpr int LD = Tile<T>::LD;
+  const int rg = lane >> 3, cp = lane & 7;
+#pragma unroll
+  for (int k = 0; k < kSide; ++k) {
+    T a[4], b[2];
+    load4(A + k * LD + 4 * rg, a);
+    load2(B + k * LD + 2 * cp, b);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      acc[t][0] = fma(a[t], b[0], acc[t][0]);
+      acc[t][1] = fma(a[t], b[1], acc[t][1]);
+    }
+  }
+}
+
+// The TN layout's 8 entries out: C = acc.
+template <typename T>
+__device__ __forceinline__ void put_tn(T* C, const T (&acc)[4][2],
+                                       int lane) {
+  constexpr int LD = Tile<T>::LD;
+  const int rg = lane >> 3, cp = lane & 7;
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    store2(C + (4 * rg + t) * LD + 2 * cp, acc[t][0], acc[t][1]);
+}
+
 // -- the diagonal tile --------------------------------------------------------
 //
 // One warp factors the tile D (only its lower triangle is read) and writes
@@ -273,26 +333,28 @@ __device__ __forceinline__ bool diag(T* D, int lane, T& logdet) {
 
 // -- the blocked factor and inverse -------------------------------------------
 //
-// M: the packed tiles of an NB x NB block matrix (NB = 8 for 128 x 128) in
-// shared memory, the lower triangle of an SPD matrix (the upper halves of
-// the diagonal tiles are never read).  `flag`: one int of shared memory,
-// zero on entry.  On return every tile (i, j) holds T_ij of T = L^-1 (the
-// diagonal tiles with exact zeros above their diagonal), `logdet` is the
-// sum of the log-pivots on warp 0 (undefined elsewhere), and the block is
-// synchronised.  Returns false on every thread if a pivot is not positive
-// or is NaN (M is then part-written).
-template <typename T, int NB, int WARPS>
-__device__ __forceinline__ bool factor_invert(T* M, int* flag, T& logdet) {
-  static_assert(NB - 1 <= WARPS, "the inverse takes one warp a tile");
+// M: the packed tiles of an nb x nb block matrix (1 <= nb <= 16; nb = 8 for
+// 128 x 128), the lower triangle of an SPD matrix (the upper halves of the
+// diagonal tiles are scratch, never read as data).  `flag`: one int of
+// shared memory, zero on entry.  On return every tile (i, j) holds T_ij of
+// T = L^-1 (the diagonal tiles with exact zeros above their diagonal),
+// `logdet` is the sum of the log-pivots on warp 0 (undefined elsewhere),
+// and the block is synchronised.  Returns false on every thread if a pivot
+// is not positive or is NaN (M is then part-written).  Needs WARPS >= 2
+// and nb - 1 <= WARPS (the caller's to ensure: nb is known at run time).
+template <typename T, int WARPS>
+__device__ __forceinline__ bool factor_invert(T* M, int nb, int* flag,
+                                              T& logdet) {
+  static_assert(WARPS >= 2, "warp 0 factors while the others update");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   T ld = T(0);
   // (a) the first diagonal tile: L_00, then T_00 in its place.
   if (warp == 0 && !diag(at(M, 0, 0), lane, ld) && lane == 0) *flag = 1;
   __syncthreads();
   if (*flag) return false;
-  for (int j = 0; j < NB - 1; ++j) {
+  for (int j = 0; j < nb - 1; ++j) {
     // (b) the panel: L_ij = A_ij T_jj^T, one warp a tile.
-    for (int i = j + 1 + warp; i < NB; i += WARPS) {
+    for (int i = j + 1 + warp; i < nb; i += WARPS) {
       T acc[2][4] = {};
       nt(acc, at(M, i, j), at(M, j, j), lane);
       __syncwarp();
@@ -305,7 +367,7 @@ __device__ __forceinline__ bool factor_invert(T* M, int* flag, T& logdet) {
     // warps in turn.  Each product is summed from zero and subtracted
     // once: subtracting its 16 terms from A_ik one by one rounds 16 times
     // at A_ik's scale, and the Schur complement cancels.
-    for (int i = j + 1 + warp; i < NB; i += WARPS) {
+    for (int i = j + 1 + warp; i < nb; i += WARPS) {
       T acc[2][4] = {};
       nt(acc, at(M, i, j), at(M, j + 1, j), lane);
       put_nt<T, true>(at(M, i, j + 1), acc, lane);
@@ -315,7 +377,7 @@ __device__ __forceinline__ bool factor_invert(T* M, int* flag, T& logdet) {
       if (!diag(at(M, j + 1, j + 1), lane, ld) && lane == 0) *flag = 1;
     } else {
       int t = 0;
-      for (int i = j + 2; i < NB; ++i)
+      for (int i = j + 2; i < nb; ++i)
         for (int k = j + 2; k <= i; ++k, ++t)
           if (t % (WARPS - 1) == warp - 1) {
             T acc[2][4] = {};
@@ -327,16 +389,16 @@ __device__ __forceinline__ bool factor_invert(T* M, int* flag, T& logdet) {
     if (*flag) return false;
   }
   // The inverse, in place, block column j from the right: each tile
-  // (i, j) below the diagonal is one warp's.  Its sum reads L's column j
-  // and the finished columns right of it; the barrier lets every warp
-  // finish reading column j before any overwrites it.
-  for (int j = NB - 2; j >= 0; --j) {
+  // (i, j) below the diagonal is one warp's (nb - 1 <= WARPS).  Its sum
+  // reads L's column j and the finished columns right of it; the barrier
+  // lets every warp finish reading column j before any overwrites it.
+  for (int j = nb - 2; j >= 0; --j) {
     const int i = j + 1 + warp;
     T acc[2][4] = {};
-    if (i < NB)
+    if (i < nb)
       for (int k = j + 1; k <= i; ++k) nn(acc, at(M, i, k), at(M, k, j), lane);
     __syncthreads();
-    if (i < NB) {
+    if (i < nb) {
       T* const Tij = at(M, i, j);
       put_nn(Tij, acc, T(1), lane);
       __syncwarp();
@@ -349,6 +411,37 @@ __device__ __forceinline__ bool factor_invert(T* M, int* flag, T& logdet) {
   }
   logdet = ld;
   return true;
+}
+
+// -- the Gram product T^T T ---------------------------------------------------
+//
+// M: the packed tiles of T (lower, as factor_invert() leaves them).  On
+// return tile (i, j), i >= j, holds (T^T T)_ij = sum_{k >= i} T_ki^T T_kj
+// (the diagonal tiles whole), and the block is synchronised.  In place, in
+// LAPACK's xLAUUM order: tiles in row-major order from the top, one warp a
+// tile, in rounds of WARPS tiles.  A round sums each of its tiles from zero
+// into registers (tn), then a barrier, then writes them: tile (i, j) reads
+// rows k >= i of T, which no round before it has written, except row i's
+// T_ii and T_ij, which only the round that holds (i, i) or (i, j)
+// overwrites, after that round's barrier.
+template <typename T, int WARPS>
+__device__ __forceinline__ void gram(T* M, int nb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = nb * (nb + 1) / 2;
+  // (i, j) of tile t = warp in row-major order over the lower triangle.
+  int i = 0, j = warp;
+  while (j > i) j -= ++i;
+  for (int t0 = 0; t0 < tiles; t0 += WARPS) {
+    const bool mine = t0 + warp < tiles;
+    T acc[4][2] = {};
+    if (mine)
+      for (int k = i; k < nb; ++k) tn(acc, at(M, k, i), at(M, k, j), lane);
+    __syncthreads();
+    if (mine) put_tn(at(M, i, j), acc, lane);
+    j += WARPS;
+    while (j > i) j -= ++i;
+  }
+  __syncthreads();
 }
 
 }  // namespace tile

@@ -16,9 +16,10 @@ positive definite, with the same signature and semantics as the reference.
 Two implementations of that one function live here:
 
   * :func:`dense_vg` — the hand-written CUDA kernel (``csrc/dense_vg.cu``),
-    one thread block per chain; the kernel tree is compiled in, generated by
-    :mod:`george_tpu_torch.dsl.cuda_codegen`.  Its ``launches`` attribute
-    counts kernel launches.
+    one thread block per chain over packed 16 x 16 tiles of K (N padded to
+    a multiple of 16 with the identity); the kernel tree is compiled in,
+    generated by :mod:`george_tpu_torch.dsl.cuda_codegen`.  Its
+    ``launches`` attribute counts kernel launches.
   * :func:`dense_vg_torch` — the plain PyTorch version: a batched K, a
     ``cholesky_ex``, alpha and the log-determinant, with the gradient from
     ``torch.autograd`` (the kernel uses the closed form
@@ -184,16 +185,14 @@ def dense_vg(spec, theta, x, y, v):
     lib = _library(spec, theta.dtype)
     meta = _meta_tensor(spec, theta.device)
     with torch.cuda.device(theta.device):
-        limit = lib.dense_vg_max_smem()
+        words = _workspace_words(lib, n, spec.d_full)
         ws = None
-        if lib.dense_vg_smem_bytes(n, spec.d_full, 1) > limit:
-            # The N x (N + 1) matrix does not fit a block's shared memory:
-            # a per-chain slice of device memory holds it instead.
-            if lib.dense_vg_smem_bytes(n, spec.d_full, 0) > limit:
-                raise ValueError("N={0} needs more shared memory than a "
-                                 "block has ({1} bytes)".format(n, limit))
-            ws = torch.empty(B * lib.dense_vg_workspace_words(n),
-                             dtype=theta.dtype, device=theta.device)
+        if words:
+            # torch's allocator aligns the workspace to far more than the
+            # 16 bytes the kernel's tile reads need; each chain's slice is
+            # a multiple of 16 bytes.
+            ws = torch.empty(B * words, dtype=theta.dtype,
+                             device=theta.device)
         stream = torch.cuda.current_stream(theta.device).cuda_stream
         err = lib.dense_vg_launch(
             theta.data_ptr(), x.data_ptr(), y.data_ptr(), v.data_ptr(),
@@ -208,6 +207,20 @@ def dense_vg(spec, theta, x, y, v):
 
 
 dense_vg.launches = 0
+
+
+def _workspace_words(lib, n, d_full):
+    """Words of device workspace a chain: 0 when the packed 16 x 16 tiles
+    of K and the vectors fit a block's shared memory on the current device,
+    else the tiles' (shared memory then holds the vectors only).  Raises
+    when not even the vectors fit."""
+    limit = lib.dense_vg_max_smem()
+    if lib.dense_vg_smem_bytes(n, d_full, 1) <= limit:
+        return 0
+    if lib.dense_vg_smem_bytes(n, d_full, 0) > limit:
+        raise ValueError("N={0} needs more shared memory than a block has "
+                         "({1} bytes)".format(n, limit))
+    return lib.dense_vg_workspace_words(n)
 
 
 def gp_loglike(node, th_kernel, x, r, noise):

@@ -14,6 +14,9 @@ of tile operations, is held to ``ops/dense_mxu.spine_torch`` (one
   * the inverse in place, block column j from the right:
     T_ij = -(sum_{k=j+1..i} T_ik L_kj) T_jj.
 
+``factor_invert_tiles`` takes any multiple of 16 up to 256, as the kernel
+does; ``tests/test_torch_dense_tiles.py`` builds on it.
+
 A chain with a pivot that is not positive gives NaN in T and logdet, and
 only that chain.
 """
@@ -25,7 +28,6 @@ import torch
 from george_tpu_torch.ops import dense_mxu
 
 SIDE = 16
-NB = dense_mxu.PANEL // SIDE
 
 
 def _spd_blocks(B, seed, ridge=0.05):
@@ -55,26 +57,37 @@ def _diag(D):
     return x, logdet, ok
 
 
-def tile_model(S):
-    """(T, logdet) of (B, 128, 128) blocks by the kernel's tile steps."""
+def factor_invert_tiles(S):
+    """The blocked factor and inverse of (B, n, n) blocks (n a multiple of
+    16, at most 256) by the kernel's tile steps: ({(i, j): T_ij}, logdet,
+    ok)."""
+    nb = S.shape[-1] // SIDE
     A = {(i, j): S[:, SIDE * i:SIDE * (i + 1), SIDE * j:SIDE * (j + 1)]
-         .clone() for i in range(NB) for j in range(i + 1)}
+         .clone() for i in range(nb) for j in range(i + 1)}
     logdet = torch.zeros(S.shape[0], dtype=S.dtype)
     ok = torch.ones(S.shape[0], dtype=torch.bool)
-    for j in range(NB):
+    for j in range(nb):
         A[j, j], ld, good = _diag(A[j, j])
         logdet += ld
         ok &= good
-        for i in range(j + 1, NB):
+        for i in range(j + 1, nb):
             A[i, j] = A[i, j] @ A[j, j].transpose(1, 2)
-        for i in range(j + 1, NB):
+        for i in range(j + 1, nb):
             for k in range(j + 1, i + 1):
                 A[i, k] = A[i, k] - A[i, j] @ A[k, j].transpose(1, 2)
-    for j in range(NB - 2, -1, -1):
+    # The inverse, block column j from the right (every sum of the column
+    # taken before any of its tiles is written).
+    for j in range(nb - 2, -1, -1):
         P = {i: sum(A[i, k] @ A[k, j] for k in range(j + 1, i + 1))
-             for i in range(j + 1, NB)}
+             for i in range(j + 1, nb)}
         for i, Pi in P.items():
             A[i, j] = -(Pi @ A[j, j])
+    return A, logdet, ok
+
+
+def tile_model(S):
+    """(T, logdet) of (B, 128, 128) blocks by the kernel's tile steps."""
+    A, logdet, ok = factor_invert_tiles(S)
     T = torch.zeros_like(S)
     for (i, j), t in A.items():
         T[:, SIDE * i:SIDE * (i + 1), SIDE * j:SIDE * (j + 1)] = t

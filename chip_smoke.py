@@ -41,16 +41,21 @@ Phases (any failure exits non-zero):
 1. device and build: the card's name and power limit, every kernel
    instantiation built from the checkout's sources (one ``nvcc`` each, all
    in parallel; the Kalman zoo's in the background until phase 10), the
-   ``-Xptxas -v`` register / shared-memory / spill lines, and the dynamic
-   shared memory of the spine and batched-product kernels;
+   ``-Xptxas -v`` register / shared-memory / spill lines and each
+   library's ``nvcc`` seconds, the dynamic shared memory of the spine and
+   batched-product kernels, and the segment count S the Kalman launcher
+   picks at each shape it runs;
 2. Kalman kernel against its plain PyTorch version at full width
-   (B = 16384, N = 1000);
+   (B = 16384, N = 1000), at the launcher's S and at S forced to 1, 2, 4,
+   7 and 64, and on short series (N = 1, 2, 5, 100: empty and ragged
+   segments) at the same S;
 3. exactness across methods: the state-space density at theta0 equals the
    dense ``GP.log_likelihood`` plus the prior, and the dense GP reproduces
    the published anchor 133.946394912;
 4. the main path, ChEES from two seeds: launch count, acceptance,
    divergences, split R-hat, agreement of the posterior means;
-5. timing of the Kalman kernel and its plain version (CUDA events);
+5. timing of the Kalman kernel (at the launcher's S and an S sweep) and
+   its plain version (CUDA events);
 6. dense kernel against its plain version: config #5 at B = 4096, N = 128;
    N = 16 (one tile), 136, 192, 200, 208, 209 and 256 (float64's tiles in
    shared memory up to 208, in device memory from 209); a zoo at B = 256
@@ -62,9 +67,10 @@ Phases (any failure exits non-zero):
    short ChEES run through the entry points;
 9. timing of the dense kernel (B = 4096: float32 and float64 at N = 128,
    float32 at N = 256) and of the Kalman kernel on the long series
-   (B = 1024, N = 100,000), beside their bounds and plain versions;
+   (B = 1024, N = 100,000; the launcher's S and an S sweep), beside their
+   bounds and plain versions;
 10. the Kalman kernel on a zoo of kernels at B = 256 against its plain
-    version;
+    version, at the launcher's S and at the forced S of phase 2;
 11. the covariance kernels against their plain versions: each stationary
     spec at N1 = 1000, N2 = 777 and batched (B = 4), float64 at rtol 1e-9
     and float32 (K within 8 ulps of max |K|, gradients within the
@@ -147,6 +153,15 @@ PEAK_BYTES = 3.35e12
 N = 1000
 CHAINS = 16384
 ZOO_CHAINS = 256
+# The Kalman kernel's split of a series over S segments: the counts forced
+# beside the launcher's in phases 2 and 10 (N = 1000 and 200 are not
+# multiples of 7), short series with ragged and empty segments (B =
+# RAGGED_CHAINS), and the counts swept in the timing of phases 5 and 9.
+FORCED_SEGMENTS = (1, 2, 4, 7, 64)
+RAGGED_N = (1, 2, 5, 100)
+RAGGED_CHAINS = 64
+MAIN_SWEEP = (1, 2, 4, 8)
+LONG_SWEEP = (1, 8, 16, 32, 64, 128)
 WARMUP = 150
 SAMPLES = 300
 MAX_LEAPFROG = 64
@@ -450,8 +465,20 @@ def median_ms(fn, reps, warmup=3):
     return float(np.median(times)), float(np.min(times))
 
 
-def compare(vg, theta, what, float32_like_plain=False):
-    """float32 and float64 Kalman kernel against the float64 plain version.
+def kalman_call(vg, theta, segments=None):
+    """The Kalman kernel over ``vg``'s series: at the launcher's segment
+    count, or at ``segments``."""
+    from george_tpu_torch.ops import kalman
+
+    if segments is None:
+        return vg(theta)
+    return kalman.kalman_vg(vg.spec, theta, *vg.series(theta),
+                            segments=segments)
+
+
+def compare(vg, theta, what, float32_like_plain=False, segments=(None,)):
+    """float32 and float64 Kalman kernel against the float64 plain version,
+    at each segment count of ``segments`` (None: the launcher's).
 
     The float32 kernel is held to the reference's kernel tolerances, or,
     with ``float32_like_plain``, to the float32 plain version (the same
@@ -478,8 +505,20 @@ def compare(vg, theta, what, float32_like_plain=False):
             "err| {2:.3e}; median over chains |ll err|/|ll| {3:.3e}, "
             "|grad err| {4:.3e}".format(what, p_ll, p_g, p_rel, p_gmed))
     errs = {}
-    for dtype in (torch.float32, torch.float64):
-        ll, g = vg(theta.to(dtype).contiguous())
+    for S, dtype in [(S, dt) for S in segments
+                     for dt in (torch.float32, torch.float64)]:
+        th = theta.to(dtype).contiguous()
+        if S is not None and S > 1 and vg.spec.dim > kalman.MAX_SPLIT_DIM:
+            try:
+                kalman_call(vg, th, S)
+                held = False
+            except ValueError:
+                held = True
+            check(held, "{0} {1} S={2}: refused, a state of {3} dimensions "
+                  "is held to S = 1".format(what, str(dtype).split(".")[-1],
+                                            S, vg.spec.dim))
+            continue
+        ll, g = kalman_call(vg, th, S)
         torch.cuda.synchronize()
         ll, g = ll.double(), g.double()
         finite = bool(torch.all(torch.isfinite(ll)) and
@@ -501,12 +540,60 @@ def compare(vg, theta, what, float32_like_plain=False):
             ok = bool(torch.all(e_ll <= 1e-9 * ll_ref.abs())) and \
                 bool(torch.all(e_g <= 1e-9 * g_ref.abs() + 1e-9))
         err = max(float(e_ll.max()), float(e_g.max()))
-        errs[dtype] = err
-        check(finite and ok, "{0} {1}: max |ll err| {2:.3e}, max |grad err| "
-              "{3:.3e} (|ll| up to {4:.4g})".format(
-                  what, str(dtype).split(".")[-1], float(e_ll.max()),
-                  float(e_g.max()), float(ll_ref.abs().max())))
+        errs[dtype] = max(errs.get(dtype, 0.0), err)
+        check(finite and ok, "{0} {1} S={2}: max |ll err| {3:.3e}, max |grad "
+              "err| {4:.3e} (|ll| up to {5:.4g})".format(
+                  what, str(dtype).split(".")[-1],
+                  launcher_segments(vg, th) if S is None else S,
+                  float(e_ll.max()), float(e_g.max()),
+                  float(ll_ref.abs().max())))
     return errs
+
+
+def entry_name(line):
+    """The function name of a ptxas "Compiling entry function '_ZN...'"
+    line (the last name of the mangled nested name)."""
+    mangled = line.split("'")[1] if "'" in line else line
+    rest, name = mangled[3:] if mangled.startswith("_ZN") else mangled[2:], \
+        mangled
+    while rest[:1].isdigit():
+        digits = len(rest) - len(rest.lstrip("0123456789"))
+        size = int(rest[:digits])
+        name, rest = rest[digits:digits + size], rest[digits + size:]
+    return name
+
+
+def launcher_segments(vg, theta):
+    """The segment count the launcher picks for ``theta`` over ``vg``."""
+    from george_tpu_torch.ops import kalman
+
+    return kalman.choose_segments(theta.shape[0], len(vg.series(theta)[1]),
+                                  vg.spec.dim)
+
+
+def kalman_sweep(vg, th32, sweep, reps, card, what):
+    """Median ms of the float32 kernel at the launcher's segment count and
+    at each S of ``sweep`` (CUDA events), printed; returns the launcher's
+    time and its minimum."""
+    auto = launcher_segments(vg, th32)
+    ms, ms_min = median_ms(lambda: vg(th32), reps=reps)
+    log("  {0}: launcher's S={1}: median {2:.4f} ms (min {3:.4f}) over {4} "
+        "launches; on {5}".format(what, auto, ms, ms_min, reps, card))
+    for S in sweep:
+        t, t_min = median_ms(lambda: kalman_call(vg, th32, S), reps=reps)
+        log("    S={0} ({1}): median {2:.4f} ms (min {3:.4f})".format(
+            S, launch_shape(S), t, t_min))
+    return ms, ms_min
+
+
+def launch_shape(S):
+    """How a launch over S segments runs, in words."""
+    from george_tpu_torch.ops import kalman
+
+    if S == 1:
+        return "one chain a thread"
+    return "clusters of {0[0]} blocks of {0[1]} warps".format(
+        kalman.cluster_shape(S))
 
 
 def within_reference_tolerance(ll, g, ll_ref, g_ref):
@@ -2044,11 +2131,15 @@ def run(dev, card):
             for line in _build.ptxas_report(inst):
                 if "entry function" in line:
                     k += 1
-                    lines.append("kernel {0}:".format(k))
+                    lines.append("kernel {0} ({1}):".format(
+                        k, entry_name(line)))
                 elif "registers" in line or "spill" in line:
                     lines.append(line)
-            log("  ptxas {0} {1}: {2}".format(
-                label, str(dt).split(".")[-1], " | ".join(lines)))
+            sec = _build.build_seconds(inst)
+            log("  ptxas {0} {1}{2}: {3}".format(
+                label, str(dt).split(".")[-1],
+                "" if sec is None else " (nvcc {0:.1f} s)".format(sec),
+                " | ".join(lines)))
 
     # The Kalman zoo's instantiations build in the background while the
     # paths run (its 6-state case spills and takes minutes); phase 10 waits
@@ -2079,13 +2170,28 @@ def run(dev, card):
     report(built, time.time() - t0)
     for line in mxu_smem_lines():
         log(line)
+    for what, B, n in (("main path", CHAINS, N),
+                       ("long series", LONG_CHAINS, LONG_N),
+                       ("long series check", LONG_CHECK_CHAINS, LONG_CHECK_N),
+                       ("zoo (main spec)", ZOO_CHAINS, 200)):
+        S = kalman.choose_segments(B, n, spec.dim)
+        log("  Kalman launcher at B={0}, N={1} ({2}): S={3}, {4}".format(
+            B, n, what, S, launch_shape(S)))
 
     # -- phase 2: Kalman kernel against the plain version --------------------
     phase("2: Kalman kernel against the plain version")
     theta_main = torch.as_tensor(
         full_thetas(gp, spec.active, 7, CHAINS, 0.1), device=dev)
     errs = compare(main_vg, theta_main,
-                   "main path B={0} N={1}".format(CHAINS, N))
+                   "main path B={0} N={1}".format(CHAINS, N),
+                   segments=(None,) + FORCED_SEGMENTS)
+    for n in RAGGED_N:
+        xr, yr, yerrr = bench_data(n, seed=n)
+        lp_r, _ = build_gp_log_prob(gp, xr, yr, yerrr, device=dev)
+        th_r = torch.as_tensor(full_thetas(gp, spec.active, 31,
+                                           RAGGED_CHAINS, 0.1), device=dev)
+        compare(lp_r.kalman_vg, th_r, "short series B={0} N={1}".format(
+            RAGGED_CHAINS, n), segments=(None,) + FORCED_SEGMENTS)
 
     # -- phase 3: exactness across methods ------------------------------------
     phase("3: exactness across methods (float64)")
@@ -2144,13 +2250,12 @@ def run(dev, card):
     # -- phase 5: Kalman timing -------------------------------------------------
     phase("5: Kalman timing at B={0}, N={1} (CUDA events)".format(CHAINS, N))
     th32 = theta_main.float().contiguous()
-    ms, ms_min = median_ms(lambda: main_vg(th32), reps=50)
+    ms, ms_min = kalman_sweep(main_vg, th32, MAIN_SWEEP, 50, card,
+                              "kernel float32")
     plain_ms, plain_min = median_ms(
         lambda: kalman.kalman_vg_torch(spec, th32, *main_vg.series(th32)),
         reps=5, warmup=1)
     bound_ms, bound_by = kalman_bound(spec, CHAINS, N)
-    log("  kernel float32: median {0:.4f} ms (min {1:.4f}) over 50 launches"
-        .format(ms, ms_min))
     log("  plain version float32: median {0:.2f} ms (min {1:.2f}) over 5 "
         "calls".format(plain_ms, plain_min))
     log("  bound {0:.4f} ms, set by {1} ({2} primal operations per step x "
@@ -2277,10 +2382,11 @@ def run(dev, card):
                    float((g32 - g64).abs().max()))
     check(bool(torch.all(torch.isfinite(l32))) and
           within_reference_tolerance(l32, g32, l64, g64),
-          "N={0} B={1}: float32 kernel against float64 kernel, max |ll err| "
-          "{2:.3e}, max |grad err| {3:.3e} (|ll| up to {4:.4g})".format(
-              LONG_N, LONG_CHAINS, float((l32 - l64).abs().max()),
-              float((g32 - g64).abs().max()), float(l64.abs().max())))
+          "N={0} B={1} S={5}: float32 kernel against float64 kernel, max "
+          "|ll err| {2:.3e}, max |grad err| {3:.3e} (|ll| up to {4:.4g})"
+          .format(LONG_N, LONG_CHAINS, float((l32 - l64).abs().max()),
+              float((g32 - g64).abs().max()), float(l64.abs().max()),
+              launcher_segments(long_vg, th_long)))
     xc, yc, yerrc = stream_data(LONG_CHECK_N, seed=1)
     lp_c, _ = build_gp_log_prob(gpl, xc, yc, yerrc, device=dev)
     vg_c = lp_c.kalman_vg
@@ -2294,10 +2400,11 @@ def run(dev, card):
     long_plain_ms = 1e3 * (time.time() - t0)
     check(bool(torch.all((lk - lr).abs() <= 1e-9 * lr.abs())) and
           bool(torch.all((gk - gr).abs() <= 1e-9 * gr.abs() + 1e-9)),
-          "N={0} B={1}: float64 kernel against the plain version ({2:.1f} "
-          "s), max |ll err| {3:.3e}, max |grad err| {4:.3e}".format(
+          "N={0} B={1} S={5}: float64 kernel against the plain version "
+          "({2:.1f} s), max |ll err| {3:.3e}, max |grad err| {4:.3e}".format(
               LONG_CHECK_N, LONG_CHECK_CHAINS, long_plain_ms / 1e3,
-              float((lk - lr).abs().max()), float((gk - gr).abs().max())))
+              float((lk - lr).abs().max()), float((gk - gr).abs().max()),
+              launcher_segments(vg_c, th_c)))
     zl = long_theta0 + 0.1 * torch.as_tensor(
         np.random.default_rng(0).standard_normal(
             (LONG_CHAINS, len(long_theta0))), device=dev,
@@ -2319,7 +2426,9 @@ def run(dev, card):
     # N=32769): a call at B=1024 and N=100,000 would take minutes and tens
     # of GB of autograd tape.
     tl32 = th_long.float().contiguous()
-    l_ms, l_min = median_ms(lambda: long_vg(tl32), reps=10)
+    l_ms, l_min = kalman_sweep(long_vg, tl32, LONG_SWEEP, 10, card,
+                               "Kalman kernel float32 B={0} N={1}".format(
+                                   LONG_CHAINS, LONG_N))
     l_plain = long_plain_ms
     l_bound, l_by = kalman_bound(spec, LONG_CHAINS, LONG_N)
     log("  Kalman kernel float32 B={0} N={1}: median {2:.4f} ms (min "
@@ -2339,7 +2448,8 @@ def run(dev, card):
         th = torch.as_tensor(full_thetas(g, vg.spec.active, 11, ZOO_CHAINS,
                                          0.2), device=dev)
         compare(vg, th, "zoo {0} B={1} N=200 active={2}".format(
-            name, ZOO_CHAINS, vg.spec.active))
+            name, ZOO_CHAINS, vg.spec.active),
+            segments=(None,) + FORCED_SEGMENTS)
 
     # -- phase 11: covariance kernels against their plain versions ---------
     phase("11: covariance kernels against their plain versions")

@@ -21,8 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
-__all__ = ["Instance", "build_dir", "build_many", "load", "ptxas_report"]
+__all__ = ["Instance", "build_dir", "build_many", "build_seconds", "load",
+           "ptxas_report"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -30,6 +32,8 @@ _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v", "-I", _CSRC]
 
 _LOADED = {}
+# Wall seconds of each library's nvcc run in this process, by path.
+_SECONDS = {}
 
 
 class Instance(object):
@@ -102,17 +106,23 @@ def build_many(instances):
         # each write their own file, and the last rename wins.
         tmp = "{0}.tmp{1}_{2}".format(lib, os.getpid(), threading.get_ident())
         cmd = [_nvcc()] + flags + ["-o", tmp, src]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT)
-        jobs.append((proc, lib, log, tmp, cmd))
+        out = open(log, "wb")
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+        jobs.append((proc, lib, log, tmp, cmd, out, time.time()))
+    pending = list(jobs)
+    while pending:
+        for job in list(pending):
+            if job[0].poll() is not None:
+                _SECONDS[job[1]] = time.time() - job[6]
+                job[5].close()
+                pending.remove(job)
+        if pending:
+            time.sleep(0.05)
     failures = []
-    for proc, lib, log, tmp, cmd in jobs:
-        out, _ = proc.communicate()
-        with open(log, "wb") as f:
-            f.write(out)
+    for proc, lib, log, tmp, cmd, _, _ in jobs:
         if proc.returncode != 0:
-            failures.append("{0}\n{1}".format(" ".join(cmd),
-                                              out.decode(errors="replace")))
+            with open(log, errors="replace") as f:
+                failures.append("{0}\n{1}".format(" ".join(cmd), f.read()))
             continue
         os.replace(tmp, lib)
     if failures:
@@ -129,6 +139,12 @@ def load(inst):
         lib = ctypes.CDLL(path)
         _LOADED[key] = lib
     return lib
+
+
+def build_seconds(inst):
+    """Wall seconds of the ``nvcc`` run that built ``inst`` in this process
+    (None if it was on disk already)."""
+    return _SECONDS.get(_paths(inst)[2])
 
 
 def ptxas_report(inst):

@@ -40,7 +40,7 @@ from ..dsl.compiler import Leaf, node_size
 
 __all__ = [
     "StateSpaceUnsupported", "Term", "extract_terms", "supports_state_space",
-    "FAMILY_CODES", "kalman_loglike",
+    "FAMILY_CODES", "kalman_loglike", "kalman_loglike_parallel",
 ]
 
 
@@ -332,7 +332,8 @@ class _FilterMachine:
         )
         return Phi, Q, _stack_entries(Pinf_e, (B,), like)
 
-    def obs_update(self, m_, P_, y_k, v_k, acc):
+    def gain_update(self, m_, P_, y_k, v_k):
+        """Observe ``y_k`` with variance ``v_k``: ``(m, P, K, innov, S)``."""
         # Joseph-form update keeps P PSD in float32.
         h = self.h
         Ph = P_ @ h                                  # (B, D)
@@ -343,6 +344,10 @@ class _FilterMachine:
         Bm = self.eye - K[:, :, None] * h[None, None, :]
         P = Bm @ P_ @ Bm.transpose(-1, -2) \
             + v_k[:, None, None] * K[:, :, None] * K[:, None, :]
+        return m, P, K, innov, S
+
+    def obs_update(self, m_, P_, y_k, v_k, acc):
+        m, P, _, innov, S = self.gain_update(m_, P_, y_k, v_k)
         acc = acc - 0.5 * (torch.log(2.0 * math.pi * S) + innov * innov / S)
         return m, P, acc
 
@@ -376,3 +381,156 @@ def kalman_loglike(terms, th_kernel, dt, r, v):
         m, P = fm.predict(m, P, Phi[k], Q[k])
         m, P, acc = fm.obs_update(m, P, r[:, k + 1], v[:, k + 1], acc)
     return acc
+
+
+# -- the associative-scan filter ----------------------------------------------
+
+def _small_inv(M):
+    """Inverse of (..., d, d): the adjugate for d <= 3, else LU."""
+    d = M.shape[-1]
+    if d == 1:
+        return 1.0 / M
+    if d == 2:
+        a, b = M[..., 0, 0], M[..., 0, 1]
+        c, e = M[..., 1, 0], M[..., 1, 1]
+        det = a * e - b * c
+        inv = torch.stack([torch.stack([e, -b], dim=-1),
+                           torch.stack([-c, a], dim=-1)], dim=-2)
+        return inv / det[..., None, None]
+    if d == 3:
+        m00, m01, m02 = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+        m10, m11, m12 = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+        m20, m21, m22 = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+        c00 = m11 * m22 - m12 * m21
+        c01 = m12 * m20 - m10 * m22
+        c02 = m10 * m21 - m11 * m20
+        c10 = m02 * m21 - m01 * m22
+        c11 = m00 * m22 - m02 * m20
+        c12 = m01 * m20 - m00 * m21
+        c20 = m01 * m12 - m02 * m11
+        c21 = m02 * m10 - m00 * m12
+        c22 = m00 * m11 - m01 * m10
+        det = m00 * c00 + m01 * c01 + m02 * c02
+        inv = torch.stack([torch.stack([c00, c10, c20], dim=-1),
+                           torch.stack([c01, c11, c21], dim=-1),
+                           torch.stack([c02, c12, c22], dim=-1)], dim=-2)
+        return inv / det[..., None, None]
+    return torch.linalg.inv(M)
+
+
+def _solve_small(M, R):
+    """solve(M, R) through :func:`_small_inv` for tiny trailing dims."""
+    if M.shape[-1] <= 3:
+        return _small_inv(M) @ R
+    return torch.linalg.solve(M, R)
+
+
+def combine(ei, ej):
+    """The filtering operator of Särkkä & García-Fernández (2021).
+
+    ``e = (A, b, C, eta, J)`` with leading batch dims; ``ei`` comes first in
+    time.  ``e_i * e_j = (Aj W Ai, Aj W (bi + Ci etaj) + bj, Aj W Ci Aj^T +
+    Cj, Ai^T Wt (etaj - Jj bi) + etai, Ai^T Wt Jj Ai + Ji)`` with ``W = (I +
+    Ci Jj)^-1`` and ``Wt = (I + Jj Ci)^-1``.
+    """
+    Ai, bi, Ci, etai, Ji = ei
+    Aj, bj, Cj, etaj, Jj = ej
+    d = Ai.shape[-1]
+    eye = torch.eye(d, dtype=Ai.dtype, device=Ai.device)
+    G = _solve_small(eye + Ci @ Jj, torch.cat(
+        [Ai, Ci, (bi + (Ci @ etaj[..., None])[..., 0])[..., None]], dim=-1))
+    WA, WC, Wb = G[..., :d], G[..., d:2 * d], G[..., -1]
+    AjT = Aj.transpose(-1, -2)
+    A_n = Aj @ WA
+    b_n = (Aj @ Wb[..., None])[..., 0] + bj
+    C_n = Aj @ WC @ AjT + Cj
+    Gt = _solve_small(eye + Jj @ Ci, torch.cat(
+        [Jj @ Ai, (etaj - (Jj @ bi[..., None])[..., 0])[..., None]], dim=-1))
+    AiT = Ai.transpose(-1, -2)
+    J_n = AiT @ Gt[..., :-1] + Ji
+    eta_n = (AiT @ Gt[..., -1][..., None])[..., 0] + etai
+    return A_n, b_n, C_n, eta_n, J_n
+
+
+def associative_scan(fn, elems):
+    """Inclusive scan of ``fn`` over the leading axis of every tensor of
+    ``elems`` in O(log n) depth (the odd/even recursion of
+    ``jax.lax.associative_scan``)."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = associative_scan(fn, fn(tuple(e[0:-1:2] for e in elems),
+                                  tuple(e[1::2] for e in elems)))
+    if n % 2 == 0:
+        even = fn(tuple(o[:-1] for o in odd), tuple(e[2::2] for e in elems))
+    else:
+        even = fn(odd, tuple(e[2::2] for e in elems))
+    out = []
+    for e, ev, o in zip(elems, even, odd):
+        ev = torch.cat([e[:1], ev], dim=0)
+        pairs = torch.stack([ev[:o.shape[0]], o], dim=1).flatten(0, 1)
+        out.append(torch.cat([pairs, ev[o.shape[0]:]], dim=0))
+    return tuple(out)
+
+
+def filter_elements(fm, Phi, Q, Pinf, r, v):
+    """The per-observation elements of the associative-scan filter.
+
+    ``Phi``, ``Q``: (N-1, B, D, D); ``Pinf``: (B, D, D); ``r``, ``v``:
+    (N, B).  Element k >= 1 conditions on the state at k - 1; element 0 is
+    the filtered posterior of observation 0 from the stationary prior.
+    Returns ``(A, b, C, eta, J)`` with leading dims (N, B).
+    """
+    h, eye = fm.h, fm.eye
+    Qh = Q @ h                                          # (M, B, D)
+    S = Qh @ h + v[1:]
+    K = Qh / S[..., None]
+    ikh = eye - K[..., :, None] * h
+    PhiTH = Phi.transpose(-1, -2) @ h
+    A = ikh @ Phi
+    b = K * r[1:, :, None]
+    C = ikh @ Q
+    eta = PhiTH * (r[1:] / S)[..., None]
+    J = PhiTH[..., :, None] * PhiTH[..., None, :] / S[..., None, None]
+
+    Ph0 = Pinf @ h                                      # (B, D)
+    S0 = Ph0 @ h + v[0]
+    K0 = Ph0 / S0[:, None]
+    ikh0 = eye - K0[:, :, None] * h
+    C0 = ikh0 @ Pinf @ ikh0.transpose(-1, -2) \
+        + v[0][:, None, None] * K0[:, :, None] * K0[:, None, :]
+    head = (torch.zeros_like(Pinf), K0 * r[0][:, None], C0,
+            torch.zeros_like(Ph0), torch.zeros_like(Pinf))
+    return tuple(torch.cat([h0[None], e], dim=0)
+                 for h0, e in zip(head, (A, b, C, eta, J)))
+
+
+def kalman_loglike_parallel(terms, th_kernel, dt, r, v):
+    """The prediction-error log-likelihood per chain by the associative-scan
+    filter: O(log N) depth of batched (D, D) operations.
+
+    Same arguments and result as :func:`kalman_loglike`.  The prefix of the
+    elements at k is the filtered state of observation k; the innovations
+    are then evaluated at once from the one-step-shifted filtered states.
+    """
+    fm = _FilterMachine(terms, th_kernel)
+    B = th_kernel.shape[0]
+    n = dt.shape[0] + 1
+    D = fm.D
+    r = torch.broadcast_to(r, (B, n)).transpose(0, 1)
+    v = torch.broadcast_to(v, (B, n)).transpose(0, 1)
+    Phi, Q, Pinf = fm.systems(fm.sig_rates(th_kernel), dt)
+    _, bs, Cs, _, _ = associative_scan(
+        combine, filter_elements(fm, Phi, Q, Pinf, r, v))
+    # Filtered state at k - 1 -> innovation at k; the k = 0 row predicts
+    # from the prior (m = 0, P = 0, Q = Pinf).
+    m_prev = torch.cat([bs.new_zeros(1, B, D), bs[:-1]], dim=0)
+    P_prev = torch.cat([Cs.new_zeros(1, B, D, D), Cs[:-1]], dim=0)
+    Phi_all = torch.cat([fm.eye.expand(1, B, D, D), Phi], dim=0)
+    Q_all = torch.cat([Pinf[None], Q], dim=0)
+    m_pred = (Phi_all @ m_prev[..., None])[..., 0]
+    P_pred = Phi_all @ P_prev @ Phi_all.transpose(-1, -2) + Q_all
+    S = (P_pred @ fm.h) @ fm.h + v
+    innov = r - m_pred @ fm.h
+    return torch.sum(-0.5 * (torch.log(2.0 * math.pi * S) + innov * innov / S),
+                     dim=0)

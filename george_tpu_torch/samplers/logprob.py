@@ -26,10 +26,10 @@ from ..ops import state_space as sskf
 __all__ = ["build_gp_log_prob", "traceable_model_fn"]
 
 _NOT_PORTED = {
-    "state_space_parallel": "the associative-scan filter (ROADMAP Queue A "
-                            "'Rest of the state space')",
     "hodlr": "the HODLR engine (ROADMAP Queue A 'HODLR')",
 }
+_STATE_SPACE = ("state_space", "state_space_sequential",
+                "state_space_parallel")
 
 
 def traceable_model_fn(model, x_host, device, dtype):
@@ -78,12 +78,13 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
     :param log_prior: optional extra prior ``log_prior(theta_active (n,))
         -> scalar`` in torch operations (evaluated per chain with
         ``torch.func.vmap``), added on top of the bounds prior.
-    :param method: ``"state_space"``: the exact O(N) Kalman likelihood
-        for 1-D Markovian kernels; ``"dense"``: covariance build +
-        Cholesky, O(N^3), for every kernel; ``"auto"``: state-space where
-        the kernel admits it, dense otherwise.  The associative-scan and
-        HODLR routes come with later slices and raise
-        ``NotImplementedError``.
+    :param method: ``"state_space"`` (or ``"state_space_sequential"``):
+        the exact O(N) Kalman likelihood for 1-D Markovian kernels;
+        ``"state_space_parallel"``: the same likelihood by the
+        associative-scan filter (O(log N) depth); ``"dense"``: covariance
+        build + Cholesky, O(N^3), for every kernel; ``"auto"``: state-space
+        where the kernel admits it, dense otherwise.  The HODLR route comes
+        with a later slice and raises ``NotImplementedError``.
     :param device: where the density is evaluated (default: the CUDA
         card; raises without one unless ``device="cpu"`` is given).
     :param dtype: the dtype of the returned ``theta0``.
@@ -99,8 +100,7 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
             "method '{0}' is not ported yet: {1}".format(
                 method, _NOT_PORTED[method])
         )
-    if method not in ("auto", "dense", "state_space",
-                      "state_space_sequential"):
+    if method not in ("auto", "dense") + _STATE_SPACE:
         raise ValueError("unknown method '{0}'".format(method))
 
     x_host = np.ascontiguousarray(gp.parse_samples(x), dtype=np.float64)
@@ -110,14 +110,15 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
     )
     node = gp.kernel.spec_node()
     usable = x_host.shape[1] == 1 and sskf.supports_state_space(node)
-    if method in ("state_space", "state_space_sequential") and not usable:
+    if method in _STATE_SPACE and not usable:
         raise sskf.StateSpaceUnsupported(
             "kernel/inputs have no exact state-space form; use "
             "method='dense'"
         )
     if method != "dense" and usable:
         log_prob = _build_state_space_log_prob(
-            gp, node, x_host, y_host, yerr2, log_prior, device
+            gp, node, x_host, y_host, yerr2, log_prior, device,
+            parallel=method == "state_space_parallel"
         )
     else:
         log_prob = _build_dense_log_prob(
@@ -185,8 +186,11 @@ def _posterior(gp, x_host, host, log_prior, device, loglike):
 
 
 def _build_state_space_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
-                                device):
-    """O(N) Kalman-filter posterior density (1-D Markovian kernels)."""
+                                device, parallel=False):
+    """O(N) Kalman-filter posterior density (1-D Markovian kernels): the
+    sequential filter, or with ``parallel`` the associative-scan filter.
+    Either way the batched value+gradient is the fused Kalman engine's, as
+    the JAX package attaches its Pallas kernel for both methods."""
     # The marginal likelihood is permutation-invariant; the filter needs
     # time-ordered inputs.
     order = np.argsort(x_host[:, 0], kind="stable")
@@ -196,14 +200,17 @@ def _build_state_space_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
     x_sorted = x_host[order]
     terms = sskf.extract_terms(node)
 
+    filter_ll = sskf.kalman_loglike_parallel if parallel \
+        else sskf.kalman_loglike
+
     def loglike(th_kernel, d, mean, log_wn):
-        return sskf.kalman_loglike(terms, th_kernel, d["dt"], d["y"] - mean,
-                                   d["yerr2"] + torch.exp(log_wn))
+        return filter_ll(terms, th_kernel, d["dt"], d["y"] - mean,
+                         d["yerr2"] + torch.exp(log_wn))
 
     host = dict(dt=np.diff(t_host), x=x_sorted, y=y_sorted, yerr2=yerr2_sorted)
     log_prob, theta_full0, unfrozen, lo, hi = _posterior(
         gp, x_sorted, host, log_prior, device, loglike)
-    log_prob.engine = "torch_state_space"
+    log_prob.engine = "torch_state_space" + ("_parallel" if parallel else "")
     if len(t_host) > kalman.MAX_N:
         _engine_note("N={0} > {1}".format(len(t_host), kalman.MAX_N),
                      what="state-space sampler path: falling back to the "

@@ -93,9 +93,12 @@ Phases (any failure exits non-zero):
     gradient, one batched forward and one batched backward launch, under
     the same accuracy gate;
 14. timing of the covariance kernels and their plain versions at
-    N = 16384 (d = 1) and N = 8192 (d = 2), their float32 errors at
-    N = 16384, and ``GP.compute`` at N = 16384 split into build, factor
-    and the rest, beside ``cholesky_ex`` alone;
+    N = 16384 (d = 1), N = 8192 (d = 2; and d = 1 with a radial
+    parameter) and over 64 chains at N = 1024 (phase 13's shape), with
+    each backward's grid launches as the library counts them, their
+    float32 errors at N = 16384, ``GP.compute`` at N = 16384 split into
+    build, factor and the rest, beside ``cholesky_ex`` alone, and one
+    ``grad_log_likelihood`` there on the kernel and plain routes;
 15. the spine kernel against its plain version on config #5's first
     diagonal blocks at N = 256 over 4096 chains, four made non positive
     definite (float64 within 1e-9 of each chain's largest |T| and of
@@ -417,32 +420,32 @@ def dense_bound(spec, B, n, ndim, itemsize=4):
                   PEAK_FP32 if itemsize == 4 else PEAK_FP64)
 
 
-def cov_fwd_bound(leaf, n1, n2, itemsize=4):
+def cov_fwd_bound(leaf, n1, n2, itemsize=4, B=1):
     """(bound_ms, bound_by) of the forward build: K written once, A1, A2
     and p read once; per entry r2 (3d operations) and the radial value."""
     from george_tpu_torch.dsl import cuda_codegen
 
     d = len(leaf.axes)
     vops, _ = cuda_codegen.radial_ops(leaf)
-    nbytes = itemsize * (n1 * n2 + (n1 + n2) * d + leaf.nparams)
-    return _bound(nbytes, n1 * n2 * (3 * d + vops))
+    nbytes = itemsize * B * (n1 * n2 + (n1 + n2) * d + leaf.nparams)
+    return _bound(nbytes, B * n1 * n2 * (3 * d + vops))
 
 
-def cov_bwd_bound(leaf, n1, n2, itemsize=4):
+def cov_bwd_bound(leaf, n1, n2, itemsize=4, B=1):
     """(bound_ms, bound_by) of the VJP: g, A1, A2 and p read once, dp, dA1
-    and dA2 written once; per entry r2 (3d), the slope, W (1), both
-    contractions (2 (2d + 1)) and, where NP > 0, the value with its NP
-    tangents (at least (1 + NP) times its primal operations) and NP
-    products and sums."""
+    and dA2 written once; per entry r2 (3d), the slope, W (1), W delta and
+    its row and column sums (3d: dA1 = 2 sum_j W delta, dA2 = -2 sum_i W
+    delta) and, where NP > 0, the value with its NP tangents (at least
+    (1 + NP) times its primal operations) and NP products and sums."""
     from george_tpu_torch.dsl import cuda_codegen
 
     d, npar = len(leaf.axes), leaf.nparams
     vops, sops = cuda_codegen.radial_ops(leaf)
-    nbytes = itemsize * (n1 * n2 + 2 * (n1 + n2) * d + 2 * npar)
-    per = 3 * d + sops + 1 + 2 * (2 * d + 1)
+    nbytes = itemsize * B * (n1 * n2 + 2 * (n1 + n2) * d + 2 * npar)
+    per = 3 * d + sops + 1 + 3 * d
     if npar:
         per += (1 + npar) * vops + 2 * npar
-    return _bound(nbytes, n1 * n2 * per)
+    return _bound(nbytes, B * n1 * n2 * per)
 
 
 # -- helpers -------------------------------------------------------------------
@@ -1342,78 +1345,144 @@ def run_sampler_density(dev):
         SAMPLER_CHAINS))
 
 
+def cov_timing_inputs(dev):
+    """The covariance kernels' timed shapes, float32: (label, leaf, p, A).
+    N = GP_N with d = 1 (the BASELINE model, ExpSquared); N = GP5_N with
+    d = 2 (config #5's Matern32 leaf on its two axes); the vmapped sampler
+    density of phase 13, B = SAMPLER_CHAINS at N = SAMPLER_N (its
+    RationalQuadratic leaf, d = 1, a radial parameter per chain), and
+    config #5's leaf at the same B and N (d = 2); the RationalQuadratic
+    leaf at N = GP5_N, where the dp tangents ride along."""
+    import torch
+
+    f32 = torch.float32
+    leaves = dict(cov_leaves())
+    rng = np.random.default_rng(17)
+    x = chol16k_data()[0]
+    xd = config5_data(GP5_N)[0][:, [0, 2]] * np.exp(
+        -0.5 * np.log([1.0, 2.0]))
+    xs = np.sort(rng.uniform(0, 10, SAMPLER_N))
+    scale = np.exp(0.05 * rng.standard_normal((SAMPLER_CHAINS, 1, 1)))
+    xs5 = config5_data(SAMPLER_N)[0][:, [0, 2]] * np.exp(
+        -0.5 * np.log([1.0, 2.0]))
+    rq = leaves["rational_quadratic d=1"]
+
+    def t(v):
+        return torch.as_tensor(v, device=dev, dtype=f32).contiguous()
+
+    return [
+        ("N={0} d=1".format(GP_N), leaves["exp_squared d=1"],
+         t(np.zeros(0)), t(x[:, None])),
+        ("N={0} d=2".format(GP5_N), leaves["matern32 d=2"], t(np.zeros(0)),
+         t(xd)),
+        ("B={0} N={1} d=1 NP=1".format(SAMPLER_CHAINS, SAMPLER_N), rq,
+         t(0.3 + 0.05 * rng.standard_normal((SAMPLER_CHAINS, 1))),
+         t(xs[None, :, None] * scale)),
+        ("B={0} N={1} d=2".format(SAMPLER_CHAINS, SAMPLER_N),
+         leaves["matern32 d=2"], t(np.zeros((SAMPLER_CHAINS, 0))),
+         t(xs5[None] * scale)),
+        ("N={0} d=1 NP=1".format(GP5_N), rq, t([0.3]),
+         t(np.sort(rng.uniform(0, 10, GP5_N))[:, None])),
+    ]
+
+
+def time_cov_kernels(dev, card, plain=True, reps=20):
+    """The covariance kernels (and, with ``plain``, their plain versions)
+    at each shape of :func:`cov_timing_inputs`, medians over CUDA events
+    beside their bounds.  Returns {label: (leaf, p, A, f_ms, fp_ms, fb, fby,
+    b_ms, bp_ms, bb, bby)}; tools/cov_timing.py runs it against the package
+    of another checkout."""
+    import torch
+    from george_tpu_torch.ops import cov
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    timed = {}
+    for label, leaf, p, A in cov_timing_inputs(dev):
+        B = A.shape[0] if A.dim() == 3 else 1
+        n = A.shape[-2]
+        g = torch.randn(A.shape[:-2] + (n, n), generator=gen, device=dev,
+                        dtype=f32)
+        f_ms, f_min = median_ms(lambda: cov.stationary_cov_fwd(leaf, p, A, A),
+                                reps=reps)
+        b_ms, b_min = median_ms(
+            lambda: cov.stationary_cov_bwd(leaf, p, A, A, g), reps=reps)
+        fp_ms = bp_ms = None
+        if plain:
+            fp_ms = median_ms(lambda: cov.stationary_cov_torch(leaf, p, A, A),
+                              reps=5, warmup=1)[0]
+            bp_ms = median_ms(
+                lambda: cov.stationary_cov_vjp_torch(leaf, p, A, A, g),
+                reps=5, warmup=1)[0]
+        fb, fby = cov_fwd_bound(leaf, n, n, B=B)
+        bb, bby = cov_bwd_bound(leaf, n, n, B=B)
+        if hasattr(cov, "bwd_plan"):
+            layout = "{0} grid launches each; {1} bands x {2} strips of {3} " \
+                "tiles, {4} resident blocks".format(
+                    cov.bwd_grid_launches(leaf, f32, B, n, n),
+                    *cov.bwd_plan(leaf, f32, B, n, n, dev))
+        else:   # a package from before the one-pass backward
+            layout = "grid launches not reported by this package"
+
+        def plain_text(ms):
+            return "not timed" if ms is None else "{0:.4f} ms".format(ms)
+
+        log("  forward float32 {0}: median {1:.4f} ms (min {2:.4f}) over {3} "
+            "launches; plain build {4}; bound {5:.4f} ms set by {6}; kernel "
+            "at {7:.1%} of the bound; library call: none; on {8}".format(
+                label, f_ms, f_min, reps, plain_text(fp_ms), fb, fby,
+                fb / f_ms, card))
+        log("  backward float32 {0}: median {1:.4f} ms (min {2:.4f}) over {3} "
+            "calls ({4}); plain VJP {5}; bound {6:.4f} ms set by {7}; kernel "
+            "at {8:.1%} of the bound; library call: none; on {9}".format(
+                label, b_ms, b_min, reps, layout, plain_text(bp_ms), bb, bby,
+                bb / b_ms, card))
+        timed[label] = (leaf, p, A, f_ms, fp_ms, fb, fby, b_ms, bp_ms, bb, bby)
+        del g
+        torch.cuda.empty_cache()
+    return timed
+
+
 def time_cov(dev, card, path_launches, err_f, err_b):
     """Phase 14: the kernels and their plain versions at the paths' shapes
-    (N = GP_N with d = 1, the BASELINE model; N = GP5_N with d = 2, config
-    #5's two axes), the kernels' float32 errors at N = GP_N, and
-    ``GP.compute`` at N = GP_N split into build, factor and the rest.
-    Returns the kernels' entries of the JSON line."""
+    (:func:`time_cov_kernels`), the kernels' float32 errors at N = GP_N,
+    ``GP.compute`` at N = GP_N split into build, factor and the rest, and
+    one ``grad_log_likelihood`` on each route.  Returns the kernels'
+    entries of the JSON line."""
     import torch
     from george_tpu_torch import config
     from george_tpu_torch.ops import cov, linalg
 
     f32 = torch.float32
+    timed = time_cov_kernels(dev, card)
+    first = "N={0} d=1".format(GP_N)
+    leaf, p, A = timed[first][:3]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    x, y, yerr = chol16k_data()
-    xd = config5_data(GP5_N)[0]
-    leaf_b, leaf_5 = cov_leaves()[0][1], cov_leaves()[2][1]
-    shapes = (
-        ("N={0} d=1".format(GP_N), leaf_b,
-         torch.as_tensor(x[:, None], device=dev, dtype=f32)),
-        ("N={0} d=2".format(GP5_N), leaf_5,
-         torch.as_tensor(xd[:, [0, 2]] * np.exp(-0.5 * np.log([1.0, 2.0])),
-                         device=dev, dtype=f32)),
-    )
-    timed = {}
-    for label, leaf, A in shapes:
-        n = A.shape[0]
-        p = torch.zeros(leaf.nparams, device=dev, dtype=f32)
-        g = torch.randn((n, n), generator=gen, device=dev, dtype=f32)
-        f_ms, f_min = median_ms(lambda: cov.stationary_cov_fwd(leaf, p, A, A),
-                                reps=20)
-        b_ms, b_min = median_ms(
-            lambda: cov.stationary_cov_bwd(leaf, p, A, A, g), reps=20)
-        fp_ms, _ = median_ms(lambda: cov.stationary_cov_torch(leaf, p, A, A),
-                             reps=5, warmup=1)
-        bp_ms, _ = median_ms(
-            lambda: cov.stationary_cov_vjp_torch(leaf, p, A, A, g), reps=5,
-            warmup=1)
-        fb, fby = cov_fwd_bound(leaf, n, n)
-        bb, bby = cov_bwd_bound(leaf, n, n)
-        log("  forward float32 {0}: median {1:.4f} ms (min {2:.4f}) over 20 "
-            "launches; plain build {3:.4f} ms; bound {4:.4f} ms set by {5}; "
-            "kernel at {6:.1%} of the bound; library call: none; on {7}"
-            .format(label, f_ms, f_min, fp_ms, fb, fby, fb / f_ms, card))
-        log("  backward float32 {0}: median {1:.4f} ms (min {2:.4f}) over "
-            "20 calls ({3} grid launches each); plain VJP {4:.4f} ms; bound "
-            "{5:.4f} ms set by {6}; kernel at {7:.1%} of the bound; library "
-            "call: none; on {8}".format(
-                label, b_ms, b_min, 4 if leaf.nparams else 3, bp_ms, bb, bby,
-                bb / b_ms, card))
-        timed[label] = (f_ms, fp_ms, fb, fby, b_ms, bp_ms, bb, bby)
-        if n == GP_N:
-            K = cov.stationary_cov_fwd(leaf, p, A, A)
-            grads = cov.stationary_cov_bwd(leaf, p, A, A, g)
-            torch.cuda.synchronize()
-            K_ref = cov.stationary_cov_torch(leaf, p.double(), A.double(),
-                                             A.double())
-            err_f = max(err_f, check_k32(K, K_ref, "forward " + label))
-            del K, K_ref
-            refs = cov.stationary_cov_vjp_torch(
-                leaf, p.double(), A.double(), A.double(), g.double())
-            for name, a, b in zip(("dp", "dA1", "dA2"), grads, refs):
-                err_b = max(err_b, check_grad32(a, b, "backward {0} {1}"
-                                                .format(label, name)))
-            del grads, refs
-        del g
-        torch.cuda.empty_cache()
+    gen.manual_seed(1)
+    g = torch.randn((GP_N, GP_N), generator=gen, device=dev, dtype=f32)
+    K = cov.stationary_cov_fwd(leaf, p, A, A)
+    grads = cov.stationary_cov_bwd(leaf, p, A, A, g)
+    torch.cuda.synchronize()
+    K_ref = cov.stationary_cov_torch(leaf, p.double(), A.double(), A.double())
+    err_f = max(err_f, check_k32(K, K_ref, "forward " + first))
+    del K, K_ref
+    refs = cov.stationary_cov_vjp_torch(
+        leaf, p.double(), A.double(), A.double(), g.double())
+    for name, a, b in zip(("dp", "dA1", "dA2"), grads, refs):
+        err_b = max(err_b, check_grad32(a, b, "backward {0} {1}".format(
+            first, name)))
+    del grads, refs, g
+    torch.cuda.empty_cache()
 
+    x, y, yerr = chol16k_data()
     # GP.compute at N = GP_N, float32: build (the kernel and the diagonal),
     # factor (cholesky_ex alone) and the rest (the NaN guard, the
     # log-determinant, host transfers), beside the plain route's compute.
+    # One grad_log_likelihood (build, factor, K^-1 and the backward through
+    # the Cholesky and the covariance VJP), the same way.
     gp = baseline_gp(dev, f32)
-    walls = {}
+    walls, grad_walls = {}, {}
     for route in ("never", "auto", "auto", "never"):
         config.pallas_covariance = route
         gp.compute(x, yerr)
@@ -1423,7 +1492,19 @@ def time_cov(dev, card, path_launches, err_f, err_b):
             gp.compute(x, yerr)
             torch.cuda.synchronize()
             walls.setdefault(route, []).append(1e3 * (time.time() - t0))
+        gp.grad_log_likelihood(y)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            gp.grad_log_likelihood(y)
+            torch.cuda.synchronize()
+            grad_walls.setdefault(route, []).append(
+                1e3 * (time.time() - t0))
     config.pallas_covariance = "auto"
+    log("  grad_log_likelihood float32 N={0}: median {1:.2f} ms on the "
+        "kernel route, {2:.2f} ms on the plain route (host clock, 6 calls "
+        "each); on {3}".format(GP_N, float(np.median(grad_walls["auto"])),
+                               float(np.median(grad_walls["never"])), card))
     node = gp.kernel.spec_node()
     theta = torch.as_tensor(gp.kernel.get_parameter_vector(
         include_frozen=True), device=dev, dtype=f32)
@@ -1448,7 +1529,7 @@ def time_cov(dev, card, path_launches, err_f, err_b):
     del K, gp
     torch.cuda.empty_cache()
 
-    f_ms, fp_ms, fb, fby, b_ms, bp_ms, bb, bby = timed[shapes[0][0]]
+    f_ms, fp_ms, fb, fby, b_ms, bp_ms, bb, bby = timed[first][3:]
     entry = {"route": "cuda",
              "source": "george_tpu_torch/csrc/stationary_cov.cu",
              "library_ms": None}

@@ -11,8 +11,12 @@
 // and the backward, for a cotangent g (N1, N2) and W = g * dk/d(r2),
 //
 //     dp_q  = sum_ij g_ij dk/dp_q (p; r2_ij)
-//     dA1_i = 2 (rowsum_i(W) a1_i - sum_j W_ij a2_j)
-//     dA2_j = 2 (colsum_j(W) a2_j - sum_i W_ij a1_i).
+//     dA1_i = 2 (rowsum_i(W) a1_i - sum_j W_ij a2_j) =  2 sum_j W_ij delta_ij
+//     dA2_j = 2 (colsum_j(W) a2_j - sum_i W_ij a1_i) = -2 sum_i W_ij delta_ij
+//
+// with delta_ij = a1_i - a2_j, the difference r2 is formed from.  The kernel
+// sums W_ij delta_ij: one product an entry and coordinate serves both
+// reductions, and no rowsum(W) a1_i - sum_j W_ij a2_j cancels.
 //
 // Every array may carry a leading batch dimension B (the vmapped sampler
 // density): p (B, PS), A1 (B, N1, d), A2 (B, N2, d), K and g (B, N1, N2),
@@ -26,39 +30,56 @@
 // spec's grad: r2, which is guarded where the slope diverges, e.g. 0 at
 // r2 = 0 for ExpKernel, so the diagonal gives W_ii = 0, never 0 * inf).
 //
-// What bounds it.  The forward writes N1 N2 entries and reads O(N d):
-// bytes, 1.07 GB of float32 output at N = 16384 (0.32 ms at 3.35 TB/s);
-// its ~3d + radial operations per entry are far under the FP32 rate.  The
-// backward reads g once in each of its two passes.
+// What bounds them.  Both are bound by bytes on the H100: the forward
+// writes N1 N2 entries (1.07 GB of float32 at N = 16384, 0.32 ms at
+// 3.35 TB/s) and the backward reads g (the same); each reads O(N d) else.
+// Their ~3d + radial operations an entry (~15-35 instructions) take a
+// large share of that time at the FP32 issue rate, so the arithmetic must
+// hide under the memory traffic, and the traffic must be g or K once.  A
+// radial parameter's tangents (a Dual pow an entry) make the backward
+// bound by its instructions instead.
 //
-// Design.
-//  * Forward: one 64 x 64 output tile per block of 64 x 4 threads.  The
-//    tile's 64 rows of A1 are staged in shared memory; each thread holds
-//    its column's a2 in registers and walks 16 rows, so a warp writes 32
-//    consecutive entries of a row of K (coalesced).  r2 comes from exact
-//    differences, never from |a|^2 + |b|^2 - 2ab, which is not exact at
-//    coincident points.  Ragged edges are masked; nothing is padded.
-//  * Backward: no W is stored; each pass recomputes r2 and the radial.
-//    - Row pass (dA1, dp): a block of 32 x 8 threads owns 32 rows and a
-//      chunk of SC_CHUNK columns; lane tx walks columns tx, tx + 32, ...
-//      (reads of g coalesced) and warp ty keeps rows ty + 8r, r < 4.  Each
-//      thread accumulates rowsum(W), W @ A2 and the dp tangents for its
-//      rows in double; the block reduces them over its 32 lanes in shared
-//      memory in a fixed order and writes one partial per (chunk, row) and
-//      one dp partial per block.  The W @ A2 contraction is done here, in
-//      the kernel's body.
-//    - Column pass (dA2): a block of 32 x 8 threads owns 32 columns and a
-//      chunk of SC_CHUNK rows; lane tx keeps column tx (reads of g
-//      coalesced along the row), warp ty walks rows ty, ty + 8, ...; the 8
-//      warps' partials are summed in a fixed order.  g is read in place:
-//      no transposed copy.
-//    - Finalize: one thread per row of A1 and per row of A2 sums the
-//      chunks' partials in chunk order and forms dA1 / dA2; a second small
-//      kernel (NP > 0) sums the dp partials of the row pass, one block per
-//      (batch, parameter), in a fixed tree.
+// Design.  A thread owns VEC = 16 / sizeof(T) consecutive columns (one
+// 16-byte access a row), a warp 32 VEC columns, a block 8 warps.
+//  * Forward: a block writes a tile of FR rows x 32 VEC columns; each warp
+//    walks every 8th row, reads that row's a1 by a broadcast load and
+//    writes VEC entries a thread with one 16-byte streaming store (K is
+//    written once and read by the next kernel, never by this one).  No
+//    shared memory, no barrier.  A row whose start is not 16-byte aligned
+//    (N2 not a multiple of VEC) takes scalar stores.
+//  * Backward, one pass over g.  A block owns a band of 64 rows and walks a
+//    strip of 64 x 32 VEC tiles along it (the launcher splits a band into
+//    strips only where the bands alone leave SMs idle).  Each thread
+//    brings its own 8 rows x VEC columns of every tile into shared memory
+//    by cp.async (16 bytes a row), STAGES - 1 tiles ahead of use, so the
+//    loads overlap the radial arithmetic; it reads back only what it
+//    copied, so the ring needs no barrier.  For each entry it forms r2,
+//    W and W delta once (and the dp tangents where NP > 0) and adds W delta
+//    to its row's and its column's sums:
+//    - rows: the 8 rows' sums over the thread's VEC columns are reduced
+//      over the warp's 32 lanes by a transposing butterfly (each step
+//      halves the values a lane holds; 9 shuffles for 8 rows), and each
+//      row's tile sum is added to a double accumulator carried across the
+//      strip in registers;
+//    - columns: the VEC columns' sums over the thread's 8 rows go to shared
+//      memory, the 8 warps' are summed in warp order, and each column's
+//      band partial (in T: a sum within one tile) is written once.
+//    Sums within a tile run in T, across tiles in double.  Shared memory
+//    is 3 stages x 32 KB plus the column exchange, two blocks an SM.
+//    Keeping both reductions inside a warp (a warp owning 4 VEC columns of
+//    all 64 rows) was slower on the H100: with each thread copying its
+//    own 64-byte pieces of rows, and no barrier, g was read at two thirds
+//    of this layout's rate; with the block copying whole rows and one
+//    barrier a tile, it matched this layout at best.
+//  * Finalize (one launch): a warp of lanes per 32 rows of A1 (or A2) sums
+//    the strips' (or bands') partials, 8 warps over interleaved partials,
+//    then the warps in order; where NP > 0 one block per (batch, parameter)
+//    sums the blocks' dp partials in a fixed tree.
 //    No float atomics anywhere: the result is the same bit for bit from
-//    run to run.  A backward is 3 launches (4 where NP > 0).
+//    run to run.  A backward is 2 grid launches; the column partials are
+//    N1 / 64 x N2 x d values of T (2-3% of g's bytes, written and read).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "dual.cuh"
@@ -77,24 +98,49 @@ typedef double acc_t;
 #define NDIM SC_NDIM
 #define NP GT_RADIAL_NP
 #define PS (NP > 0 ? NP : 1)
-#define NACC (1 + NDIM)
-
-// Forward tile.
-#define F_ROWS 64
-#define F_COLS 64
-#define F_TY 4
-// Backward blocks: 32 lanes x 8 warps; rows (row pass) or columns (column
-// pass) per block, and the length of the walked chunk.
-#define B_TX 32
-#define B_TY 8
-#define B_RPT 4
-#define B_ROWS (B_TY * B_RPT)
-#define SC_CHUNK 1024
 
 namespace {
 
 using gt::radial::radial_slope;
 using gt::radial::radial_value;
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kVec = 16 / (int)sizeof(T);  // columns a thread
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 32 * kVec;            // columns a tile
+// Forward: rows a block.
+constexpr int kFwdRows = 128;
+// Backward: rows a thread, rows a band (a tile), ring stages.
+constexpr int kRows = 8;
+constexpr int kBand = kWarps * kRows;
+constexpr int kStages = 3;
+constexpr int kTile = kBand * kCols;
+// Two blocks an SM in float32; the float64 thread's registers allow one.
+constexpr int kMinBlocks = sizeof(T) == 4 ? 2 : 1;
+
+// 16 bytes of T: a streaming store to global memory, a store to and a load
+// from shared memory.
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store16(double* p, const double* v) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+__device__ __forceinline__ void put16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void put16(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x, v[1] = q.y;
+}
 
 __device__ __forceinline__ T r2_of(const T* a, const T* b) {
   T r2 = T(0);
@@ -106,46 +152,168 @@ __device__ __forceinline__ T r2_of(const T* a, const T* b) {
   return r2;
 }
 
-__global__ void __launch_bounds__(F_COLS * F_TY)
+// The coordinates of the thread's kVec columns from j0 (0 past n2).
+__device__ __forceinline__ void load_cols(T (&c)[kVec][NDIM],
+                                          const T* __restrict__ a2b, int j0,
+                                          int n2) {
+#pragma unroll
+  for (int v = 0; v < kVec; ++v)
+#pragma unroll
+    for (int k = 0; k < NDIM; ++k)
+      c[v][k] = j0 + v < n2 ? __ldg(a2b + (size_t)(j0 + v) * NDIM + k)
+                            : T(0);
+}
+
+// Grid (row tiles x column tiles, B): a tile of kFwdRows x kCols.
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads)
 cov_fwd(const T* __restrict__ p, const T* __restrict__ a1,
-        const T* __restrict__ a2, T* __restrict__ K, int n1, int n2) {
-  __shared__ T s1[F_ROWS * NDIM];
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * F_ROWS;
-  const int j = blockIdx.x * F_COLS + threadIdx.x;
-  const int tid = threadIdx.y * F_COLS + threadIdx.x;
-  const T* a1b = a1 + (size_t)b * n1 * NDIM;
-  for (int t = tid; t < F_ROWS * NDIM; t += F_COLS * F_TY) {
-    const int i = i0 + t / NDIM;
-    s1[t] = i < n1 ? a1b[(size_t)i0 * NDIM + t] : T(0);
-  }
+        const T* __restrict__ a2, T* __restrict__ K, int n1, int n2,
+        int ctiles) {
+  const int b = blockIdx.y;
+  const int rt = blockIdx.x / ctiles, ct = blockIdx.x - rt * ctiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = ct * kCols + lane * kVec;
+  if (j0 >= n2) return;
   T pv[PS];
 #pragma unroll
   for (int q = 0; q < PS; ++q) pv[q] = p[(size_t)b * PS + q];
-  T c[NDIM];
-#pragma unroll
-  for (int k = 0; k < NDIM; ++k)
-    c[k] = j < n2 ? a2[((size_t)b * n2 + j) * NDIM + k] : T(0);
-  __syncthreads();
-  if (j >= n2) return;
-  T* Kb = K + (size_t)b * n1 * n2;
-  for (int r = threadIdx.y; r < F_ROWS; r += F_TY) {
-    const int i = i0 + r;
+  T c[kVec][NDIM];
+  load_cols(c, a2 + (size_t)b * n2 * NDIM, j0, n2);
+  const T* a1b = a1 + (size_t)b * n1 * NDIM;
+  T* Kb = K + (size_t)b * n1 * n2 + j0;
+  const int i0 = rt * kFwdRows + warp;
+#pragma unroll 4
+  for (int r = 0; r < kFwdRows / kWarps; ++r) {
+    const int i = i0 + kWarps * r;
     if (i >= n1) break;
-    const T r2 = r2_of(s1 + r * NDIM, c);
-    Kb[(size_t)i * n2 + j] = radial_value<T, T>(pv, r2);
+    T ra[NDIM];
+#pragma unroll
+    for (int k = 0; k < NDIM; ++k) ra[k] = __ldg(a1b + (size_t)i * NDIM + k);
+    T out[kVec];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v)
+      out[v] = radial_value<T, T>(pv, r2_of(ra, c[v]));
+    T* dst = Kb + (size_t)i * n2;
+    if (kAligned) {
+      store16(dst, out);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        if (j0 + v < n2) __stcs(dst + v, out[v]);
+    }
   }
 }
 
-// One entry's contributions: W = g k'(r2) and, for NP > 0, g dk/dp.
-struct Entry {
-  T w;
-  T dp[PS];
-};
+// The thread's share of one tile of g (rows i0 + warp kRows + r, columns
+// jt + lane kVec + v) into its own slots of a stage; zeros past the edges.
+template <bool kAligned>
+__device__ __forceinline__ void copy_tile(T* __restrict__ st,
+                                          const T* __restrict__ gb, int n1,
+                                          int n2, int i0, int jt, int warp,
+                                          int lane) {
+  const int j = jt + lane * kVec;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int ii = warp * kRows + r, i = i0 + ii;
+    T* dst = st + ii * kCols + lane * kVec;
+    if (kAligned) {
+      const bool in = i < n1 && j < n2;
+      __pipeline_memcpy_async(dst, in ? gb + (size_t)i * n2 + j : gb, 16,
+                              in ? 0 : 16);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        const bool in = i < n1 && j + v < n2;
+        __pipeline_memcpy_async(dst + v,
+                                in ? gb + (size_t)i * n2 + j + v : gb,
+                                sizeof(T), in ? 0 : sizeof(T));
+      }
+    }
+  }
+}
 
-__device__ __forceinline__ Entry entry(const T* pv, T r2, T gij) {
-  Entry e;
-  e.w = gij * radial_slope<T>(pv, r2);
+// v[r], r < 8: this lane's partials of the warp's 8 rows.  Returns the sum
+// over the warp's 32 lanes of row lane >> 2: each step trades half of the
+// rows a lane holds with its partner and keeps the other half, summed.
+// The 4 lanes holding a row get the same bits (a + b == b + a).
+__device__ __forceinline__ T warp_rows_sum(T (&v)[kRows], int lane) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const bool hi = lane & 16;
+    const T send = hi ? v[s] : v[s + 4];
+    v[s] = (hi ? v[s + 4] : v[s]) + __shfl_xor_sync(kFull, send, 16);
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const bool hi = lane & 8;
+    const T send = hi ? v[s] : v[s + 2];
+    v[s] = (hi ? v[s + 2] : v[s]) + __shfl_xor_sync(kFull, send, 8);
+  }
+  {
+    const bool hi = lane & 4;
+    const T send = hi ? v[0] : v[1];
+    v[0] = (hi ? v[1] : v[0]) + __shfl_xor_sync(kFull, send, 4);
+  }
+  v[0] += __shfl_xor_sync(kFull, v[0], 2);
+  v[0] += __shfl_xor_sync(kFull, v[0], 1);
+  return v[0];
+}
+
+// Shared memory of the backward block: the ring, the column exchange and
+// the dp exchange.
+constexpr size_t kRingBytes = sizeof(T) * kStages * kTile;
+constexpr size_t kRedBytes = sizeof(T) * NDIM * kWarps * kCols;
+constexpr size_t kBwdSmem =
+    kRingBytes + kRedBytes + sizeof(acc_t) * kWarps * PS;
+
+// Grid (bands x strips, B).  part_rows (B, strips, d, N1) and part_dp
+// (B, bands x strips, PS) in double, part_cols (B, bands, d, N2) in T.
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+cov_bwd_tiles(const T* __restrict__ p, const T* __restrict__ a1,
+              const T* __restrict__ a2, const T* __restrict__ g,
+              acc_t* __restrict__ part_rows, acc_t* __restrict__ part_dp,
+              T* __restrict__ part_cols, int n1, int n2, int bands,
+              int strips, int ctiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);
+  T* const red = ring + kStages * kTile;               // [d][warp][kCols]
+  acc_t* const dred = reinterpret_cast<acc_t*>(red + NDIM * kWarps * kCols);
+  const int b = blockIdx.y;
+  const int band = blockIdx.x / strips, strip = blockIdx.x - band * strips;
+  const int t0 = (int)((long long)strip * ctiles / strips);
+  const int t1 = (int)((long long)(strip + 1) * ctiles / strips);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = band * kBand;
+  const T* gb = g + (size_t)b * n1 * n2;
+  const T* a2b = a2 + (size_t)b * n2 * NDIM;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (t0 + s < t1)
+      copy_tile<kAligned>(ring + s * kTile, gb, n1, n2, i0, (t0 + s) * kCols,
+                          warp, lane);
+    __pipeline_commit();
+  }
+
+  T pv[PS];
+#pragma unroll
+  for (int q = 0; q < PS; ++q) pv[q] = p[(size_t)b * PS + q];
+  T ra[kRows][NDIM];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = i0 + warp * kRows + r;
+#pragma unroll
+    for (int k = 0; k < NDIM; ++k)
+      ra[r][k] = i < n1 ? a1[((size_t)b * n1 + i) * NDIM + k] : T(0);
+  }
+  acc_t racc[NDIM];
+#pragma unroll
+  for (int k = 0; k < NDIM; ++k) racc[k] = 0.0;
+  acc_t dpa[PS];
+#pragma unroll
+  for (int q = 0; q < PS; ++q) dpa[q] = 0.0;
 #if NP > 0
   gt::Dual<T, NP> pd[NP];
 #pragma unroll
@@ -153,201 +321,232 @@ __device__ __forceinline__ Entry entry(const T* pv, T r2, T gij) {
     pd[q] = gt::constant<T, NP>(pv[q]);
     pd[q].d[q] = T(1);
   }
-  const gt::Dual<T, NP> k = radial_value<T, gt::Dual<T, NP>>(pd, r2);
-#pragma unroll
-  for (int q = 0; q < NP; ++q) e.dp[q] = gij * k.d[q];
-#else
-  e.dp[0] = T(0);
 #endif
-  return e;
-}
 
-// Row pass: partial rowsum(W) and W @ A2 per (column chunk, row), and dp
-// per block.  Grid (column chunks, row blocks, B).
-__global__ void __launch_bounds__(B_TX * B_TY)
-cov_bwd_rows(const T* __restrict__ p, const T* __restrict__ a1,
-             const T* __restrict__ a2, const T* __restrict__ g,
-             acc_t* __restrict__ part_rows, acc_t* __restrict__ part_dp,
-             int n1, int n2) {
-  __shared__ acc_t red[B_TX * B_TY * (NACC > PS ? NACC : PS)];
-  const int b = blockIdx.z;
-  const int chunk = blockIdx.x, nchunk = gridDim.x;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i0 = blockIdx.y * B_ROWS;
-  const int jend = min(n2, (chunk + 1) * SC_CHUNK);
-  T pv[PS];
-#pragma unroll
-  for (int q = 0; q < PS; ++q) pv[q] = p[(size_t)b * PS + q];
-  T ra[B_RPT][NDIM];
-  acc_t acc[B_RPT][NACC];
-  acc_t dp[PS];
-#pragma unroll
-  for (int q = 0; q < PS; ++q) dp[q] = 0.0;
-#pragma unroll
-  for (int r = 0; r < B_RPT; ++r) {
-    const int i = i0 + ty + B_TY * r;
+  T c[kVec][NDIM];
+  load_cols(c, a2b, t0 * kCols + lane * kVec, n2);
+  for (int t = t0; t < t1; ++t) {
+    const int it = t - t0;
+    if (t + kStages - 1 < t1)
+      copy_tile<kAligned>(ring + ((it + kStages - 1) % kStages) * kTile, gb,
+                          n1, n2, i0, (t + kStages - 1) * kCols, warp, lane);
+    __pipeline_commit();
+    T cn[kVec][NDIM];
+    load_cols(cn, a2b, (t + 1) * kCols + lane * kVec, n2);
+    __pipeline_wait_prior(kStages - 1);  // this thread's share of tile t
+
+    const T* st = ring + (it % kStages) * kTile + warp * kRows * kCols +
+                  lane * kVec;
+    T rowv[NDIM][kRows];
+    T colv[NDIM][kVec];
 #pragma unroll
     for (int k = 0; k < NDIM; ++k)
-      ra[r][k] = i < n1 ? a1[((size_t)b * n1 + i) * NDIM + k] : T(0);
 #pragma unroll
-    for (int k = 0; k < NACC; ++k) acc[r][k] = 0.0;
-  }
-  const T* gb = g + (size_t)b * n1 * n2;
-  for (int j = chunk * SC_CHUNK + tx; j < jend; j += B_TX) {
-    T c[NDIM];
+      for (int v = 0; v < kVec; ++v) colv[k][v] = T(0);
+    T dpt[PS];
 #pragma unroll
-    for (int k = 0; k < NDIM; ++k)
-      c[k] = a2[((size_t)b * n2 + j) * NDIM + k];
+    for (int q = 0; q < PS; ++q) dpt[q] = T(0);
 #pragma unroll
-    for (int r = 0; r < B_RPT; ++r) {
-      const int i = i0 + ty + B_TY * r;
-      if (i < n1) {
-        const Entry e = entry(pv, r2_of(ra[r], c), gb[(size_t)i * n2 + j]);
-        acc[r][0] += (acc_t)e.w;
+    for (int r = 0; r < kRows; ++r) {
+      T gv[kVec];
+      load16(st + r * kCols, gv);
 #pragma unroll
-        for (int k = 0; k < NDIM; ++k) acc[r][1 + k] += (acc_t)e.w * c[k];
+      for (int k = 0; k < NDIM; ++k) rowv[k][r] = T(0);
 #pragma unroll
-        for (int q = 0; q < NP; ++q) dp[q] += (acc_t)e.dp[q];
+      for (int v = 0; v < kVec; ++v) {
+        T dl[NDIM];
+        T r2 = T(0);
+#pragma unroll
+        for (int k = 0; k < NDIM; ++k) {
+          dl[k] = ra[r][k] - c[v][k];
+          r2 += dl[k] * dl[k];
+        }
+        const T w = gv[v] * radial_slope<T>(pv, r2);
+#pragma unroll
+        for (int k = 0; k < NDIM; ++k) {
+          const T wd = w * dl[k];
+          rowv[k][r] += wd;
+          colv[k][v] += wd;
+        }
+#if NP > 0
+        const gt::Dual<T, NP> kv = radial_value<T, gt::Dual<T, NP>>(pd, r2);
+#pragma unroll
+        for (int q = 0; q < NP; ++q) dpt[q] += gv[v] * kv.d[q];
+#endif
       }
     }
-  }
-  // Sum over the 32 lanes, row by row, in lane order.
-  const int tid = ty * B_TX + tx;
 #pragma unroll
-  for (int r = 0; r < B_RPT; ++r) {
+    for (int k = 0; k < NDIM; ++k)
+      racc[k] += (acc_t)warp_rows_sum(rowv[k], lane);
 #pragma unroll
-    for (int k = 0; k < NACC; ++k) red[tid * NACC + k] = acc[r][k];
+    for (int q = 0; q < PS; ++q) dpa[q] += (acc_t)dpt[q];
+
+    // Columns: the 8 warps' sums, in warp order, one partial a column.
+    __syncthreads();  // the previous tile's exchange has been read
+#pragma unroll
+    for (int k = 0; k < NDIM; ++k)
+      put16(red + (k * kWarps + warp) * kCols + lane * kVec, colv[k]);
     __syncthreads();
-    const int i = i0 + ty + B_TY * r;
-    for (int k = tx; k < NACC; k += B_TX) {
-      acc_t s = 0.0;
-      for (int l = 0; l < B_TX; ++l) s += red[(ty * B_TX + l) * NACC + k];
-      if (i < n1)
-        part_rows[(((size_t)b * nchunk + chunk) * n1 + i) * NACC + k] = s;
+    const int jt = t * kCols;
+    for (int e = tid; e < NDIM * kCols; e += kThreads) {
+      const int k = e / kCols, col = e - k * kCols;
+      T s = T(0);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[(k * kWarps + w) * kCols + col];
+      if (jt + col < n2)
+        part_cols[(((size_t)b * bands + band) * NDIM + k) * n2 + jt + col] = s;
     }
-    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < kVec; ++v)
+#pragma unroll
+      for (int k = 0; k < NDIM; ++k) c[v][k] = cn[v][k];
+  }
+
+  // Rows: lanes 4 m hold row m of the warp's 8.
+  const int i = i0 + warp * kRows + (lane >> 2);
+  if ((lane & 3) == 0 && i < n1) {
+#pragma unroll
+    for (int k = 0; k < NDIM; ++k)
+      part_rows[(((size_t)b * strips + strip) * NDIM + k) * n1 + i] = racc[k];
   }
 #if NP > 0
 #pragma unroll
-  for (int q = 0; q < NP; ++q) red[tid * NP + q] = dp[q];
+  for (int q = 0; q < NP; ++q) {
+    acc_t s = dpa[q];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    if (lane == 0) dred[warp * PS + q] = s;
+  }
   __syncthreads();
   if (tid < NP) {
     acc_t s = 0.0;
-    for (int l = 0; l < B_TX * B_TY; ++l) s += red[l * NP + tid];
-    const size_t blk = (size_t)blockIdx.y * nchunk + chunk;
-    const size_t nblk = (size_t)gridDim.y * nchunk;
-    part_dp[((size_t)b * nblk + blk) * NP + tid] = s;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += dred[w * PS + tid];
+    part_dp[(((size_t)b * bands + band) * strips + strip) * PS + tid] = s;
   }
 #else
   (void)part_dp;
-  (void)dp;
+  (void)dpa;
+  (void)dred;
 #endif
 }
 
-// Column pass: partial colsum(W) and W^T @ A1 per (row chunk, column).
-// Grid (column blocks, row chunks, B).
-__global__ void __launch_bounds__(B_TX * B_TY)
-cov_bwd_cols(const T* __restrict__ p, const T* __restrict__ a1,
-             const T* __restrict__ a2, const T* __restrict__ g,
-             acc_t* __restrict__ part_cols, int n1, int n2) {
-  __shared__ acc_t red[B_TX * B_TY * NACC];
-  const int b = blockIdx.z;
-  const int chunk = blockIdx.y, nchunk = gridDim.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * B_TX + tx;
-  const int iend = min(n1, (chunk + 1) * SC_CHUNK);
-  T pv[PS];
-#pragma unroll
-  for (int q = 0; q < PS; ++q) pv[q] = p[(size_t)b * PS + q];
-  T c[NDIM];
-#pragma unroll
-  for (int k = 0; k < NDIM; ++k)
-    c[k] = j < n2 ? a2[((size_t)b * n2 + j) * NDIM + k] : T(0);
-  acc_t acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = 0.0;
-  const T* gb = g + (size_t)b * n1 * n2;
-  if (j < n2) {
-    for (int i = chunk * SC_CHUNK + ty; i < iend; i += B_TY) {
-      T ra[NDIM];
-#pragma unroll
-      for (int k = 0; k < NDIM; ++k)
-        ra[k] = a1[((size_t)b * n1 + i) * NDIM + k];
-      const Entry e = entry(pv, r2_of(ra, c), gb[(size_t)i * n2 + j]);
-      acc[0] += (acc_t)e.w;
-#pragma unroll
-      for (int k = 0; k < NDIM; ++k) acc[1 + k] += (acc_t)e.w * ra[k];
-    }
-  }
-  const int tid = ty * B_TX + tx;
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) red[tid * NACC + k] = acc[k];
-  __syncthreads();
-  // Sum over the 8 warps, in warp order.
-  for (int t = tid; t < B_TX * NACC; t += B_TX * B_TY) {
-    const int l = t / NACC, k = t % NACC;
-    const int jj = blockIdx.x * B_TX + l;
-    acc_t s = 0.0;
-    for (int w = 0; w < B_TY; ++w) s += red[(w * B_TX + l) * NACC + k];
-    if (jj < n2)
-      part_cols[(((size_t)b * nchunk + chunk) * n2 + jj) * NACC + k] = s;
-  }
-}
-
-// dA1 and dA2 from the chunk partials: one thread per row of A1 or A2.
-// Grid (ceil((n1 + n2) / 256), B).
-__global__ void __launch_bounds__(256)
-cov_bwd_finalize(const T* __restrict__ a1, const T* __restrict__ a2,
-                 const acc_t* __restrict__ part_rows,
-                 const acc_t* __restrict__ part_cols, T* __restrict__ da1,
-                 T* __restrict__ da2, int n1, int n2, int nchunk_rows,
-                 int nchunk_cols) {
+// dA1, dA2 and dp from the partials.  Grid (rblocks + cblocks + NP, B):
+// a block of 32 rows of A1 (the first rblocks) or A2 (the next cblocks),
+// its 8 warps over interleaved partials, then the warps in order; or (NP >
+// 0) one parameter's dp over the blocks' partials in a fixed tree.
+__global__ void __launch_bounds__(kThreads)
+cov_bwd_finalize(const acc_t* __restrict__ part_rows,
+                 const acc_t* __restrict__ part_dp,
+                 const T* __restrict__ part_cols, T* __restrict__ dp,
+                 T* __restrict__ da1, T* __restrict__ da2, int n1, int n2,
+                 int bands, int strips, int rblocks, int cblocks) {
+  __shared__ acc_t red[kThreads * (NDIM > 1 ? NDIM : 1)];
   const int b = blockIdx.y;
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n1 + n2) return;
-  const bool row = o < n1;
-  const int i = row ? o : o - n1;
-  const int n = row ? n1 : n2;
-  const int nchunk = row ? nchunk_rows : nchunk_cols;
-  const acc_t* part = row ? part_rows : part_cols;
-  const T* a = (row ? a1 : a2) + ((size_t)b * n + i) * NDIM;
-  T* out = (row ? da1 : da2) + ((size_t)b * n + i) * NDIM;
-  acc_t s[NACC];
+  const int x = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (x < rblocks + cblocks) {
+    const bool row = x < rblocks;
+    const int i = (row ? x : x - rblocks) * 32 + lane;
+    const int n = row ? n1 : n2;
+    const int parts = row ? strips : bands;
+    acc_t s[NDIM];
 #pragma unroll
-  for (int k = 0; k < NACC; ++k) s[k] = 0.0;
-  for (int c = 0; c < nchunk; ++c) {
-    const acc_t* q = part + (((size_t)b * nchunk + c) * n + i) * NACC;
+    for (int k = 0; k < NDIM; ++k) s[k] = 0.0;
+    if (i < n) {
+      for (int c = warp; c < parts; c += kWarps) {
 #pragma unroll
-    for (int k = 0; k < NACC; ++k) s[k] += q[k];
+        for (int k = 0; k < NDIM; ++k) {
+          const size_t at = (((size_t)b * parts + c) * NDIM + k) * n + i;
+          s[k] += row ? part_rows[at] : (acc_t)part_cols[at];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NDIM; ++k) red[(warp * 32 + lane) * NDIM + k] = s[k];
+    __syncthreads();
+    if (warp == 0 && i < n) {
+      T* out = (row ? da1 : da2) + ((size_t)b * n + i) * NDIM;
+#pragma unroll
+      for (int k = 0; k < NDIM; ++k) {
+        acc_t t = 0.0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) t += red[(w * 32 + lane) * NDIM + k];
+        out[k] = (T)((row ? 2.0 : -2.0) * t);
+      }
+    }
+    return;
   }
-#pragma unroll
-  for (int k = 0; k < NDIM; ++k)
-    out[k] = (T)(2.0 * (s[0] * (acc_t)a[k] - s[1 + k]));
-}
-
-// dp from the row pass's per-block partials: one block per (parameter,
-// batch), a strided sum per thread and a fixed tree over the block.
-__global__ void __launch_bounds__(256)
-cov_bwd_dp(const acc_t* __restrict__ part_dp, T* __restrict__ dp,
-           int nblk) {
-  __shared__ acc_t red[256];
-  const int q = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const int q = x - rblocks - cblocks;
+  const int nblk = bands * strips;
   acc_t s = 0.0;
-  for (int l = t; l < nblk; l += 256)
+  for (int l = tid; l < nblk; l += kThreads)
     s += part_dp[((size_t)b * nblk + l) * PS + q];
-  red[t] = s;
+  red[tid] = s;
   __syncthreads();
-  for (int h = 128; h > 0; h >>= 1) {
-    if (t < h) red[t] += red[t + h];
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (tid < h) red[tid] += red[tid + h];
     __syncthreads();
   }
-  if (t == 0) dp[(size_t)b * PS + q] = (T)red[0];
+  if (tid == 0) dp[(size_t)b * PS + q] = (T)red[0];
 }
 
-int row_chunks(int n2) { return (n2 + SC_CHUNK - 1) / SC_CHUNK; }
-int row_blocks(int n1) { return (n1 + B_ROWS - 1) / B_ROWS; }
-int col_blocks(int n2) { return (n2 + B_TX - 1) / B_TX; }
-int col_chunks(int n1) { return (n1 + SC_CHUNK - 1) / SC_CHUNK; }
+// The backward's layout for (B, N1, N2) on the current device.
+struct Plan {
+  int bands, ctiles, strips;
+  long long rows, dps, cols;  // words of each partial array
+};
+
+// Resident backward blocks on the current device (the SMs times the blocks
+// an SM holds), once per device; 0 where the query failed.
+int resident_blocks() {
+  static int cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0) {
+    int sms = 0, per = 0;
+    if (cudaFuncSetAttribute(cov_bwd_tiles<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kBwdSmem) != cudaSuccess ||
+        cudaFuncSetAttribute(cov_bwd_tiles<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kBwdSmem) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, cov_bwd_tiles<true>, kThreads, kBwdSmem) != cudaSuccess ||
+        per < 1)
+      return 0;
+    cache[dev] = sms * per;
+  }
+  return cache[dev];
+}
+
+// Strips a band: the fewest that keep the `res` resident blocks busy, by
+// waves of blocks times the tiles (plus one for the block's own start and
+// end) each block walks.
+Plan plan(int B, int n1, int n2, long long res) {
+  Plan pl;
+  pl.bands = (n1 + kBand - 1) / kBand;
+  pl.ctiles = (n2 + kCols - 1) / kCols;
+  const long long nb = (long long)B * pl.bands;
+  long long best = -1;
+  pl.strips = 1;
+  for (int s = 1; s <= pl.ctiles && s <= 64; ++s) {
+    const long long waves = (nb * s + res - 1) / res;
+    const long long cost = waves * ((pl.ctiles + s - 1) / s + 1);
+    if (best < 0 || cost < best) best = cost, pl.strips = s;
+  }
+  pl.rows = (long long)B * pl.strips * NDIM * n1;
+  pl.dps = (long long)B * pl.bands * pl.strips * PS;
+  pl.cols = ((long long)B * pl.bands * NDIM * n2 * (long long)sizeof(T) +
+             sizeof(acc_t) - 1) / sizeof(acc_t);
+  return pl;
+}
+
+bool aligned(const void* ptr, int n2) {
+  return n2 % kVec == 0 && ((size_t)ptr & 15) == 0;
+}
 
 }  // namespace
 
@@ -362,18 +561,35 @@ void sc_config(int* out) {
 
 // The largest N1 and N2 the grids take, and the largest B.
 void sc_limits(int* out) {
-  out[0] = 65535 * B_ROWS;   // N1: row blocks on gridDim.y
-  out[1] = 2147483647;       // N2: column tiles on gridDim.x
-  out[2] = 65535;            // B on gridDim.z / gridDim.y
+  out[0] = 2147483647;  // N1: row tiles and bands are folded into gridDim.x
+  out[1] = 2147483647;  // N2
+  out[2] = 65535;       // B on gridDim.y
 }
 
-// Words (acc_t) of the backward's workspace: the row and column partials
-// and the dp partials.
+// Words (acc_t) of the backward's workspace on the current device: the
+// row, dp and column partials; -1 where the device query failed.
 long long sc_bwd_workspace_words(int B, int n1, int n2) {
-  const long long rows = (long long)B * row_chunks(n2) * n1 * NACC;
-  const long long cols = (long long)B * col_chunks(n1) * n2 * NACC;
-  const long long dps = (long long)B * row_chunks(n2) * row_blocks(n1) * PS;
-  return rows + cols + dps;
+  if (B <= 0 || n1 <= 0 || n2 <= 0) return 0;
+  const int res = resident_blocks();
+  if (res == 0) return -1;
+  const Plan pl = plan(B, n1, n2, res);
+  return pl.rows + pl.dps + pl.cols;
+}
+
+// Grid launches of one backward call.
+int sc_bwd_grid_launches(int B, int n1, int n2) {
+  return B > 0 && n1 > 0 && n2 > 0 ? 2 : 0;
+}
+
+// (bands, strips a band, column tiles, resident blocks) of the backward
+// at (B, N1, N2) on the current device.
+void sc_bwd_plan(int B, int n1, int n2, int* out) {
+  const int res = resident_blocks();
+  const Plan pl = plan(B, n1, n2, res > 0 ? res : 1);
+  out[0] = pl.bands;
+  out[1] = pl.strips;
+  out[2] = pl.ctiles;
+  out[3] = res;
 }
 
 const char* sc_error_string(int err) {
@@ -383,9 +599,20 @@ const char* sc_error_string(int err) {
 int sc_fwd_launch(const void* p, const void* a1, const void* a2, void* K,
                   int B, int n1, int n2, void* stream) {
   if (B <= 0 || n1 <= 0 || n2 <= 0) return 0;
-  const dim3 grid((n2 + F_COLS - 1) / F_COLS, (n1 + F_ROWS - 1) / F_ROWS, B);
-  cov_fwd<<<grid, dim3(F_COLS, F_TY), 0, (cudaStream_t)stream>>>(
-      (const T*)p, (const T*)a1, (const T*)a2, (T*)K, n1, n2);
+  const int ctiles = (n2 + kCols - 1) / kCols;
+  const long long tiles =
+      (long long)((n1 + kFwdRows - 1) / kFwdRows) * ctiles;
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)tiles, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (aligned(K, n2))
+    cov_fwd<true><<<grid, kThreads, 0, s>>>((const T*)p, (const T*)a1,
+                                            (const T*)a2, (T*)K, n1, n2,
+                                            ctiles);
+  else
+    cov_fwd<false><<<grid, kThreads, 0, s>>>((const T*)p, (const T*)a1,
+                                             (const T*)a2, (T*)K, n1, n2,
+                                             ctiles);
   return (int)cudaGetLastError();
 }
 
@@ -394,31 +621,33 @@ int sc_bwd_launch(const void* p, const void* a1, const void* a2,
                   int B, int n1, int n2, void* stream) {
   if (B <= 0 || n1 <= 0 || n2 <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int rc = row_chunks(n2), rb = row_blocks(n1);
-  const int cb = col_blocks(n2), cc = col_chunks(n1);
+  const int res = resident_blocks();
+  if (res == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
+  }
+  const Plan pl = plan(B, n1, n2, res);
+  if ((long long)pl.bands * pl.strips > 2147483647LL)
+    return (int)cudaErrorInvalidConfiguration;
   acc_t* part_rows = (acc_t*)ws;
-  acc_t* part_cols = part_rows + (size_t)B * rc * n1 * NACC;
-  acc_t* part_dp = part_cols + (size_t)B * cc * n2 * NACC;
-  cov_bwd_rows<<<dim3(rc, rb, B), dim3(B_TX, B_TY), 0, s>>>(
-      (const T*)p, (const T*)a1, (const T*)a2, (const T*)g, part_rows,
-      part_dp, n1, n2);
+  acc_t* part_dp = part_rows + pl.rows;
+  T* part_cols = (T*)(part_dp + pl.dps);
+  const dim3 grid(pl.bands * pl.strips, B);
+  if (aligned(g, n2))
+    cov_bwd_tiles<true><<<grid, kThreads, kBwdSmem, s>>>(
+        (const T*)p, (const T*)a1, (const T*)a2, (const T*)g, part_rows,
+        part_dp, part_cols, n1, n2, pl.bands, pl.strips, pl.ctiles);
+  else
+    cov_bwd_tiles<false><<<grid, kThreads, kBwdSmem, s>>>(
+        (const T*)p, (const T*)a1, (const T*)a2, (const T*)g, part_rows,
+        part_dp, part_cols, n1, n2, pl.bands, pl.strips, pl.ctiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cov_bwd_cols<<<dim3(cb, cc, B), dim3(B_TX, B_TY), 0, s>>>(
-      (const T*)p, (const T*)a1, (const T*)a2, (const T*)g, part_cols, n1,
-      n2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cov_bwd_finalize<<<dim3((n1 + n2 + 255) / 256, B), 256, 0, s>>>(
-      (const T*)a1, (const T*)a2, part_rows, part_cols, (T*)da1, (T*)da2, n1,
-      n2, rc, cc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (NP > 0) {
-    cov_bwd_dp<<<dim3(PS, B), 256, 0, s>>>(part_dp, (T*)dp, rc * rb);
-    err = cudaGetLastError();
-  }
-  return (int)err;
+  const int rblocks = (n1 + 31) / 32, cblocks = (n2 + 31) / 32;
+  cov_bwd_finalize<<<dim3(rblocks + cblocks + NP, B), kThreads, 0, s>>>(
+      part_rows, part_dp, part_cols, (T*)dp, (T*)da1, (T*)da2, n1, n2,
+      pl.bands, pl.strips, rblocks, cblocks);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -24,10 +24,17 @@ Two implementations of each direction live here:
     function compiled in, generated by
     :func:`george_tpu_torch.dsl.cuda_codegen.generate_radial` from the
     spec's ``value:`` and ``grad: r2:``.  Each has a ``launches`` count: one
-    per call (a backward call is 3 grid launches, 4 where NP > 0).
+    per call.  A forward call is one grid launch; a backward call is the
+    number :func:`bwd_grid_launches` gives (the library's own count: a pass
+    over g that reduces each tile along both axes, then one finalize).
   * :func:`stationary_cov_torch` / :func:`stationary_cov_vjp_torch` — the
     plain PyTorch versions; the VJP takes dp from the spec's parameter
     ``grad:`` entries, independent of the kernel's forward-mode tangents.
+
+:func:`stationary_cov_vjp_tiles_torch` repeats the backward kernel's
+tiling in plain PyTorch (row bands, in-tile sums in the working type,
+per-band column partials, the finalize in band order), so that the CPU
+tests can hold the kernel's algorithm to the plain VJP.
 
 The Function dispatches on the device of its inputs: CUDA tensors go to
 the kernels (which raise on what they do not take), CPU tensors to the
@@ -50,11 +57,16 @@ from ..dsl import compiler, cuda_codegen
 from ..dsl.specs import available_kernels
 
 __all__ = ["make_stationary_cov", "stationary_cov", "stationary_cov_vjp",
-           "stationary_cov_fwd", "stationary_cov_bwd",
-           "stationary_cov_torch", "stationary_cov_vjp_torch", "instance"]
+           "stationary_cov_fwd", "stationary_cov_bwd", "bwd_grid_launches",
+           "bwd_plan",
+           "stationary_cov_torch", "stationary_cov_vjp_torch",
+           "stationary_cov_vjp_tiles_torch", "instance"]
 
 SOURCE = "stationary_cov.cu"
 _CTYPE = {torch.float32: "float", torch.float64: "double"}
+# The backward kernel's tile: BAND rows by 512 bytes of columns (128
+# float32 or 64 float64: 16 bytes a lane, 32 lanes).
+BAND = 64
 
 
 @lru_cache(maxsize=None)
@@ -81,6 +93,11 @@ def _library(leaf, dtype):
         lib.sc_bwd_launch.restype = ctypes.c_int
         lib.sc_bwd_workspace_words.argtypes = [ctypes.c_int] * 3
         lib.sc_bwd_workspace_words.restype = ctypes.c_longlong
+        lib.sc_bwd_grid_launches.argtypes = [ctypes.c_int] * 3
+        lib.sc_bwd_grid_launches.restype = ctypes.c_int
+        lib.sc_bwd_plan.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.sc_bwd_plan.restype = None
         lib.sc_error_string.argtypes = [ctypes.c_int]
         lib.sc_error_string.restype = ctypes.c_char_p
         lib.sc_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -197,9 +214,12 @@ def stationary_cov_bwd(leaf, p, A1, A2, g):
         _check_limits(lib, B, n1, n2)
         pp, a1, a2 = _device_args(leaf, p, A1, A2, B)
         gg = g.reshape(B, n1, n2).contiguous()
-        ws = torch.empty(lib.sc_bwd_workspace_words(B, n1, n2),
-                         dtype=torch.float64, device=A1.device)
         with torch.cuda.device(A1.device):
+            words = lib.sc_bwd_workspace_words(B, n1, n2)
+            if words < 0:
+                raise RuntimeError("stationary_cov backward: the device "
+                                   "query for its launch plan failed")
+            ws = torch.empty(words, dtype=torch.float64, device=A1.device)
             stream = torch.cuda.current_stream(A1.device).cuda_stream
             err = lib.sc_bwd_launch(
                 pp.data_ptr(), a1.data_ptr(), a2.data_ptr(), gg.data_ptr(),
@@ -217,6 +237,22 @@ def stationary_cov_bwd(leaf, p, A1, A2, g):
 
 
 stationary_cov_bwd.launches = 0
+
+
+def bwd_grid_launches(leaf, dtype, B, n1, n2):
+    """Grid launches of one :func:`stationary_cov_bwd` call at ``(B, N1,
+    N2)``, as the kernel library counts them (builds it at first use)."""
+    return _library(leaf, dtype).sc_bwd_grid_launches(B, n1, n2)
+
+
+def bwd_plan(leaf, dtype, B, n1, n2, device=None):
+    """``(bands, strips a band, column tiles, resident blocks)`` of the
+    backward kernel at ``(B, N1, N2)`` on ``device``'s card."""
+    lib = _library(leaf, dtype)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        lib.sc_bwd_plan(B, n1, n2, out)
+    return tuple(out)
 
 
 # -- the plain versions ----------------------------------------------------
@@ -277,6 +313,60 @@ def stationary_cov_vjp_torch(leaf, p, A1, A2, g):
     da1 = 2.0 * (torch.sum(W, dim=-1)[..., None] * A1 - W @ A2)
     da2 = 2.0 * (torch.sum(W, dim=-2)[..., None] * A2
                  - W.transpose(-2, -1) @ A1)
+    return dp, da1, da2
+
+
+def stationary_cov_vjp_tiles_torch(leaf, p, A1, A2, g, strips=1):
+    """:func:`stationary_cov_vjp_torch` computed the way the backward
+    kernel computes it (any device): g cut into tiles of :data:`BAND` rows
+    by 512 bytes of columns, each row band's tiles walked in ``strips``
+    strips (at most one a tile); per entry ``W delta`` with ``delta = a1_i
+    - a2_j`` (so ``dA1 = 2 sum_j W delta``, ``dA2 = -2 sum_i W delta``);
+    each tile's row, column and dp sums in the working type, row and dp
+    sums carried across a strip's tiles in float64, one column partial per
+    (band, column) in the working type, and the finalize summing the
+    strips' and the bands' partials in order in float64."""
+    batched, B, n1, n2 = _shapes(leaf, p, A1, A2, g)
+    dt, dev, f64 = A1.dtype, A1.device, torch.float64
+    slope, grads = _spec_fns(leaf.name, leaf.constants)
+    d, tc = len(leaf.axes), 512 // A1.element_size()
+    bands, ct = -(-n1 // BAND), -(-n2 // tc)
+    pr = _radial_params(p)
+    a1 = A1.reshape(B, n1, d)
+    a2 = A2.reshape(B, n2, d)
+    delta = a1[:, :, None, :] - a2[:, None, :, :]
+    r2 = torch.sum(delta * delta, dim=-1).reshape(g.shape)
+    wd = (g * slope(pr, r2)).reshape(B, n1, n2)[..., None] * delta
+    terms = [wd] + [(g * gq(pr, r2)).reshape(B, n1, n2, 1) for gq in grads]
+    # Zero padding to whole tiles: (B, bands, BAND, ct, tc, d + NP).
+    x = torch.zeros((B, bands * BAND, ct * tc, d + len(grads)), dtype=dt,
+                    device=dev)
+    x[:, :n1, :n2] = torch.cat(terms, dim=-1)
+    x = x.reshape(B, bands, BAND, ct, tc, -1)
+    row_t = torch.sum(x[..., :d], dim=4).to(f64)      # (B, bands, BAND, ct, d)
+    col_t = torch.sum(x[..., :d], dim=2)              # (B, bands, ct, tc, d)
+    dp_t = torch.sum(x[..., d:], dim=(2, 4)).to(f64)  # (B, bands, ct, NP)
+    strips = min(strips, ct)                          # as the launcher does
+    bounds = [s * ct // strips for s in range(strips + 1)]
+    rows = torch.zeros_like(row_t[:, :, :, 0])
+    dacc = torch.zeros((B, bands, strips, len(grads)), dtype=f64, device=dev)
+    for s in range(strips):
+        racc = torch.zeros_like(rows)
+        for t in range(bounds[s], bounds[s + 1]):
+            racc += row_t[:, :, :, t]
+            dacc[:, :, s] += dp_t[:, :, t]
+        rows += racc
+    dps = torch.zeros((B, len(grads)), dtype=f64, device=dev)
+    for blk in dacc.reshape(B, bands * strips, -1).unbind(1):
+        dps += blk
+    cols = torch.zeros_like(col_t[:, 0], dtype=f64)
+    for band in range(bands):
+        cols += col_t[:, band].to(f64)
+    da1 = (2.0 * rows.reshape(B, bands * BAND, d)[:, :n1]).to(dt)
+    da2 = (-2.0 * cols.reshape(B, ct * tc, d)[:, :n2]).to(dt)
+    dp = dps.to(dt).reshape(p.shape) if grads else torch.zeros_like(p)
+    if not batched:
+        return dp, da1[0], da2[0]
     return dp, da1, da2
 
 

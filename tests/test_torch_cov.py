@@ -238,12 +238,15 @@ def test_cuda_kernels_match_plain_versions():
     for name, k in sorted(_leaves(tk).items()):
         leaf = k.spec_node()
         d = len(leaf.axes)
-        for lead in ((), (3,)):
-            A1 = rng.standard_normal(lead + (300, d))
-            A2 = rng.standard_normal(lead + (257, d))
+        # 1000 x 777 spans several row bands and column tiles of the
+        # backward kernel in both dimensions, off their multiples.
+        for lead, n1, n2 in (((), 300, 257), ((3,), 300, 257),
+                             ((), 1000, 777)):
+            A1 = rng.standard_normal(lead + (n1, d))
+            A2 = rng.standard_normal(lead + (n2, d))
             A2[..., :50, :] = A1[..., :50, :]
             p = 0.3 + 0.1 * rng.standard_normal(lead + (leaf.nparams,))
-            g = rng.standard_normal(lead + (300, 257))
+            g = rng.standard_normal(lead + (n1, n2))
             ref = cov.stationary_cov_torch(
                 leaf, *(torch.as_tensor(v) for v in (p, A1, A2)))
             refs = cov.stationary_cov_vjp_torch(

@@ -10,8 +10,9 @@ hand-written CUDA kernels:
 * the main path: the hyperparameter posterior of ``1.0 *
   Matern32Kernel(1.0)`` with a fitted log white noise over N = 1000 sorted
   inputs, 16384 chains (``build_gp_log_prob``, ``run_mcmc(algorithm=
-  "chees")``), every leapfrog one launch of the Kalman value+gradient
-  kernel (``george_tpu_torch/csrc/kalman_vg.cu``);
+  "chees")``, then ``bench.py``'s NUTS leg, ``run_mcmc(algorithm="nuts",
+  max_depth=4, persistent=True)``, and HMC), every leapfrog one launch of
+  the Kalman value+gradient kernel (``george_tpu_torch/csrc/kalman_vg.cu``);
 * the dense path (``benchmarks/config5.py``): ``1.0 * Matern32Kernel`` on
   two of three input axes under an axis-aligned metric, fitted mean and log
   white noise, N = 128, 4096 chains, every leapfrog one launch of the dense
@@ -127,7 +128,22 @@ Phases (any failure exits non-zero):
     value+gradient at B = 4096, N = 256 split into build, factor, inverse,
     ll and the reverse pass beside the fused engine, and the batched
     product at each chain count beside ``torch.matmul``, its plain version
-    and its bound.
+    and its bound;
+20. the NUTS leg on the main path (max depth 4, trajectory-persistent,
+    16384 chains, 150 warmup iterations, 300 draws in one block) from two
+    seeds: launches == value+gradient calls, finite draws, divergences,
+    split R-hat, the seeds' means, the means and stds against phase 4's
+    ChEES run, the draws' acceptance, step size and leapfrogs per draw
+    against the JAX package's run (``tools/nuts_reference.py``), and
+    ``trajectory_health`` against it; the wall split into warmup and
+    sampling, the loop iterations, the kernel's share of the wall, the host
+    ms an iteration and the useful-leapfrog share;
+21. per-draw NUTS (``persistent=False``, 100 draws) against phase 20: the
+    means, the leapfrogs per draw, each mode's wall a draw;
+22. HMC on the main path (4096 chains, 8 leapfrogs, 100 + 100) against
+    phase 4's means and its warmup acceptance against the 0.8 target, and
+    NUTS on the dense path (phase 7's, 4096 chains, 50 + 50) over the dense
+    kernel.
 
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
@@ -263,6 +279,29 @@ TPU_FIDELITY = {
     "CPU x64 oracle": ((-0.116, -8.066, -0.757, 2.438, 3.843),
                        (0.654, 1.50, 0.600, 0.516, 0.499)),
 }
+# Phases 20-22: the main path's NUTS leg (bench.py's: max depth 4,
+# trajectory-persistent, 16384 chains, blocks of 300 draws; 300 draws, not
+# 1200), per-draw NUTS beside it, HMC, and NUTS on the dense path.
+NUTS_DEPTH = 4
+NUTS_SAMPLES = 300
+PER_DRAW_SAMPLES = 100
+HMC_CHAINS = 4096
+HMC_WARMUP = 100
+HMC_SAMPLES = 100
+HMC_LEAPFROG = 8
+DENSE_NUTS_WARMUP = 50
+DENSE_NUTS_SAMPLES = 50
+# The JAX package's NUTS run on this main path (same data, model, prior,
+# initial spread and schedule, max depth 4, trajectory-persistent; 512
+# chains in float64 on a CPU), seeds 1-3, from tools/nuts_reference.py:
+# (lowest, highest) over the seeds of the draws' acceptance, the step size,
+# the leapfrogs per draw and the share of draws of exactly 3 or 7
+# leapfrogs.  Dual averaging targets 0.8 in warmup; the draws run at the
+# averaged step size.
+REF_NUTS_ACCEPT = (0.7954, 0.7978)
+REF_NUTS_STEP_SIZE = (0.3206, 0.3264)
+REF_NUTS_LEAPFROGS_PER_DRAW = (9.95, 10.15)
+REF_NUTS_FRAC_3_OR_7 = (0.4181, 0.4419)
 # The batched product (benchmarks/pallas_batched_mm.py's defaults).
 MM_B, MM_N, MM_REP = 4096, 128, 20
 # float32 products within MM_ULPS float32 ulps of |a_i| |b_j| (a dot
@@ -898,26 +937,149 @@ def means_agree(runs):
               gap.cpu().numpy(), bound.cpu().numpy()))
 
 
-def run_chees(log_prob, z0, seeds, counter, dev, **opts):
-    """ChEES from each seed, the kernel's launch count set to 0 just before
-    each run and read just after: [(result, seconds, launches)]."""
+def run_sampler(log_prob, z0, seeds, counter, dev, algorithm, **opts):
+    """``run_mcmc`` from each seed, the kernel's launch count set to 0 just
+    before each run and read just after, and read as well (with the wall
+    clock) when warmup ends: [(result, seconds, launches, warmup seconds,
+    warmup launches)]."""
     import torch
     from george_tpu_torch.samplers import run_mcmc
 
-    def progress(phase, done, total):
-        if done == total:
-            log("  {0} {1}/{2}".format(phase, done, total))
-
     out = []
     for seed in seeds:
+        warm = []
+
+        def progress(phase, done, total):
+            if done == total:
+                if phase == "warmup":
+                    warm.append((time.time() - t0, counter.launches))
+                log("  {0} {1}/{2}".format(phase, done, total))
+
         counter.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
-        res = run_mcmc(log_prob, z0, seed, algorithm="chees",
+        res = run_mcmc(log_prob, z0, seed, algorithm=algorithm,
                        progress=progress, device=dev, **opts)
         torch.cuda.synchronize()
-        out.append((res, time.time() - t0, counter.launches))
+        out.append((res, time.time() - t0, counter.launches) + warm[0])
     return out
+
+
+def run_chees(log_prob, z0, seeds, counter, dev, **opts):
+    """ChEES from each seed: [(result, seconds, launches)]."""
+    return [r[:3] for r in run_sampler(log_prob, z0, seeds, counter, dev,
+                                       "chees", **opts)]
+
+
+def posteriors_agree(a, b, what, stds=True):
+    """Two runs' posterior means within 5 combined Monte Carlo standard
+    errors and, with ``stds``, their stds within 10%."""
+    import torch
+    from george_tpu_torch.samplers import effective_sample_size
+
+    stats = []
+    for res in (a, b):
+        s = res.samples.double()
+        flat = s.reshape(-1, s.shape[-1])
+        std = flat.std(0)
+        stats.append((flat.mean(0), std,
+                      std / torch.sqrt(effective_sample_size(s))))
+    (m_a, s_a, se_a), (m_b, s_b, se_b) = stats
+    gap = (m_a - m_b).abs()
+    bound = 5.0 * torch.sqrt(se_a ** 2 + se_b ** 2)
+    ratio = s_a / s_b
+    ok = bool(torch.all(gap <= bound))
+    if stds:
+        ok = ok and bool(torch.all((ratio - 1).abs() <= 0.10))
+    check(ok, "{0}: means {1} and {2}, gaps {3} within 5 combined MC "
+          "standard errors {4}; std ratios {5}{6}".format(
+              what, np.round(m_a.cpu().numpy(), 4),
+              np.round(m_b.cpu().numpy(), 4), np.round(gap.cpu().numpy(), 5),
+              np.round(bound.cpu().numpy(), 5),
+              np.round(ratio.cpu().numpy(), 4),
+              " within 10%" if stds else " (not gated)"))
+
+
+def sampler_split(run, kernel_ms, chains, card, what):
+    """Print a run's wall split into warmup and sampling, its loop
+    iterations (batched value+gradient calls, one kernel launch each),
+    launches x the kernel's time against the wall (the rest is the host's
+    per iteration), the useful-leapfrog share of the sampling phase (the
+    draws' leapfrogs over its iterations x chains) and min bulk ESS over
+    the wall."""
+    from george_tpu_torch.samplers import effective_sample_size
+
+    res, seconds, launches, warm_s, warm_l = run
+    draw_l = launches - warm_l
+    kernel_s = launches * kernel_ms / 1e3
+    useful = float(res.n_leapfrog.double().sum()) / (draw_l * chains)
+    ess = float(effective_sample_size(res.samples.double()).min())
+    log("  {0}: wall {1:.2f} s (warmup {2:.2f} s, {3} iterations; sampling "
+        "{4:.2f} s, {5} iterations); launches x kernel time ({6:.4f} ms, "
+        "phase 5) = {7:.2f} s ({8:.1%} of the wall), the host {9:.3f} ms an "
+        "iteration beyond it; useful-leapfrog share of sampling {10:.4f} "
+        "({11} leapfrogs over {5} x {12}); min bulk ESS {13:.1f}, {14:.1f} "
+        "a second; on {15}".format(
+            what, seconds, warm_s, warm_l, seconds - warm_s, draw_l,
+            kernel_ms, kernel_s, kernel_s / seconds,
+            (seconds - kernel_s) * 1e3 / launches, useful,
+            int(res.n_leapfrog.sum()), chains, ess, ess / seconds, card))
+
+
+def nuts_gates(run, seed, card):
+    """Phase 20's per-run gates: launches, finite draws, divergences, split
+    R-hat, and the draws' acceptance, step size and leapfrogs per draw held
+    to the JAX package's run (tools/nuts_reference.py) within 0.03, 10% and
+    20% of its range over seeds, as chees_gates widens its own; the
+    trajectory lengths healthy (diagnostics.trajectory_health against the
+    reference's mean, and the {3, 7} mass within 0.25 of its range)."""
+    import torch
+    from george_tpu_torch.samplers import split_rhat
+    from george_tpu_torch.samplers.diagnostics import trajectory_health
+
+    res, seconds, launches = run[:3]
+    check(launches == res.num_evaluations,
+          "seed {0}: kernel launches {1} == value+gradient calls {2}".format(
+              seed, launches, res.num_evaluations))
+    check(bool(torch.all(torch.isfinite(res.samples))),
+          "seed {0}: all {1} draws finite".format(
+              seed, tuple(res.samples.shape)))
+    div = float(res.diverging.double().mean())
+    check(div < 0.01, "seed {0}: divergence fraction {1:.5f} < 0.01".format(
+        seed, div))
+    rhat = float(split_rhat(res.samples.double()).max())
+    check(rhat < 1.01, "seed {0}: max split R-hat {1:.5f} < 1.01".format(
+        seed, rhat))
+    acc = float(res.accept_prob.double().mean())
+    lo, hi = REF_NUTS_ACCEPT[0] - 0.03, REF_NUTS_ACCEPT[1] + 0.03
+    check(lo <= acc <= hi,
+          "seed {0}: mean acceptance of the draws {1:.4f} in [{2:.4f}, "
+          "{3:.4f}] (JAX reference {4})".format(seed, acc, lo, hi,
+                                               REF_NUTS_ACCEPT))
+    eps = float(res.step_size)
+    lo, hi = 0.9 * REF_NUTS_STEP_SIZE[0], 1.1 * REF_NUTS_STEP_SIZE[1]
+    check(lo <= eps <= hi,
+          "seed {0}: step size {1:.4f} in [{2:.4f}, {3:.4f}] (JAX "
+          "reference {4})".format(seed, eps, lo, hi, REF_NUTS_STEP_SIZE))
+    leaps = float(res.n_leapfrog.double().mean())
+    lo = 0.8 * REF_NUTS_LEAPFROGS_PER_DRAW[0]
+    hi = 1.2 * REF_NUTS_LEAPFROGS_PER_DRAW[1]
+    check(lo <= leaps <= hi,
+          "seed {0}: {1:.2f} leapfrogs per draw in [{2:.2f}, {3:.2f}] (JAX "
+          "reference {4})".format(seed, leaps, lo, hi,
+                                  REF_NUTS_LEAPFROGS_PER_DRAW))
+    expected = sum(REF_NUTS_LEAPFROGS_PER_DRAW) / 2.0
+    health = trajectory_health(res.n_leapfrog, expected_mean=expected)
+    sig = health["frac_truncation_signature"]
+    lo, hi = REF_NUTS_FRAC_3_OR_7[0] - 0.25, REF_NUTS_FRAC_3_OR_7[1] + 0.25
+    check(health["healthy"] and lo <= sig <= hi,
+          "seed {0}: trajectories healthy: mean {1:.2f} leapfrogs within 25% "
+          "of the reference's {2:.2f}, {3:.4f} of the draws at exactly 3 "
+          "({4:.4f}) or 7 ({5:.4f}) leapfrogs in [{6:.4f}, {7:.4f}] (JAX "
+          "reference {8}); at most {9} leapfrogs".format(
+              seed, health["mean_leapfrog"], expected, sig,
+              health["frac_3"], health["frac_7"], lo, hi,
+              REF_NUTS_FRAC_3_OR_7, int(res.n_leapfrog.max())))
 
 
 def cov_instances():
@@ -2137,6 +2299,95 @@ def time_mxu(dev, card, engine, mm_lines):
 
 # -- the phases ----------------------------------------------------------------
 
+def run_nuts(phase, log_prob, z0, chees_runs, dense_lp, zd, kernel_ms, dev,
+             card):
+    """Phases 20-22: NUTS and HMC over the main path's log_prob and z0
+    (phase 4's), against phase 4's ChEES runs, and NUTS over the dense
+    path's log_prob and zd (phase 7's).  Returns the Kalman kernel's
+    launches in the NUTS leg's first run."""
+    import torch
+    from george_tpu_torch.ops import dense, kalman
+
+    t_run = time.time()
+    chains = z0.shape[0]
+    phase("20: the NUTS leg over {0} chains, max depth {1}, "
+          "trajectory-persistent".format(chains, NUTS_DEPTH))
+    nruns = run_sampler(log_prob, z0, (1, 2), kalman.kalman_vg, dev, "nuts",
+                        max_depth=NUTS_DEPTH, persistent=True,
+                        num_warmup=WARMUP, num_samples=NUTS_SAMPLES,
+                        block_size=NUTS_SAMPLES, warmup_block_size=BLOCK)
+    for seed, r in zip((1, 2), nruns):
+        nuts_gates(r, seed, card)
+        sampler_split(r, kernel_ms, chains, card, "seed {0}".format(seed))
+    means_agree([r[0] for r in nruns])
+    posteriors_agree(nruns[0][0], chees_runs[0],
+                     "NUTS (seed 1) against ChEES (phase 4, seed 1)")
+
+    phase("21: per-draw NUTS against persistent NUTS, {0} chains".format(
+        chains))
+    (pd,) = run_sampler(log_prob, z0, (3,), kalman.kalman_vg, dev, "nuts",
+                        max_depth=NUTS_DEPTH, persistent=False,
+                        num_warmup=WARMUP, num_samples=PER_DRAW_SAMPLES,
+                        block_size=PER_DRAW_SAMPLES, warmup_block_size=BLOCK)
+    res = pd[0]
+    check(pd[2] == res.num_evaluations and
+          bool(torch.all(torch.isfinite(res.samples))),
+          "per-draw: kernel launches {0} == value+gradient calls {1}, all "
+          "draws finite".format(pd[2], res.num_evaluations))
+    posteriors_agree(res, nruns[0][0], "per-draw NUTS (seed 3, {0} draws) "
+                     "against persistent NUTS (seed 1)".format(
+                         PER_DRAW_SAMPLES), stds=False)
+    leaps = [float(r.n_leapfrog.double().mean()) for r in (res, nruns[0][0])]
+    check(abs(leaps[0] - leaps[1]) <= 0.10 * leaps[1],
+          "leapfrogs per draw, per-draw {0:.3f} against persistent {1:.3f}: "
+          "within 10%".format(*leaps))
+    sampler_split(pd, kernel_ms, chains, card, "per-draw, seed 3")
+    for what, (r, n) in (("per-draw", (pd, PER_DRAW_SAMPLES)),
+                         ("persistent", (nruns[0], NUTS_SAMPLES))):
+        log("  {0}: sampling wall {1:.2f} ms a draw ({2} draws, {3:.1f} "
+            "iterations a draw); on {4}".format(
+                what, (r[1] - r[3]) * 1e3 / n, n, (r[2] - r[4]) / n, card))
+
+    phase("22: HMC over {0} chains, {1} leapfrogs; NUTS on the dense "
+          "path".format(HMC_CHAINS, HMC_LEAPFROG))
+    (hr,) = run_sampler(log_prob, z0[:HMC_CHAINS].contiguous(), (4,),
+                        kalman.kalman_vg, dev, "hmc",
+                        num_leapfrog=HMC_LEAPFROG, num_warmup=HMC_WARMUP,
+                        num_samples=HMC_SAMPLES, block_size=HMC_SAMPLES,
+                        warmup_block_size=BLOCK)
+    res = hr[0]
+    warm_acc = float(res.warmup_accept_prob[-TERM_BUFFER:].double().mean())
+    check(hr[2] == res.num_evaluations and
+          bool(torch.all(torch.isfinite(res.samples))) and
+          abs(warm_acc - 0.8) <= 0.15,
+          "HMC: kernel launches {0} == value+gradient calls {1}, all draws "
+          "finite, mean acceptance of the last {2} warmup iterations {3:.4f} "
+          "within 0.15 of 0.8 (step size {4:.4f})".format(
+              hr[2], res.num_evaluations, TERM_BUFFER, warm_acc,
+              float(res.step_size)))
+    posteriors_agree(res, chees_runs[0], "HMC (seed 4) against ChEES "
+                     "(phase 4, seed 1)", stds=False)
+    sampler_split(hr, kernel_ms, HMC_CHAINS, card, "HMC, seed 4")
+
+    check(dense_lp.engine == "cuda_dense", "dense path engine {0}".format(
+        dense_lp.engine))
+    (dr,) = run_sampler(dense_lp, zd, (5,), dense.dense_vg, dev, "nuts",
+                        max_depth=NUTS_DEPTH, num_warmup=DENSE_NUTS_WARMUP,
+                        num_samples=DENSE_NUTS_SAMPLES,
+                        block_size=DENSE_NUTS_SAMPLES, warmup_block_size=BLOCK)
+    res = dr[0]
+    div = float(res.diverging.double().mean())
+    check(dr[2] == res.num_evaluations and
+          bool(torch.all(torch.isfinite(res.samples))) and div < 0.01,
+          "dense path NUTS over {0} chains: dense_vg launches {1} == "
+          "value+gradient calls {2}, all draws finite, divergence fraction "
+          "{3:.5f} < 0.01; {4:.2f} s, {5:.2f} leapfrogs per draw; on "
+          "{6}".format(zd.shape[0], dr[2], res.num_evaluations, div, dr[1],
+                       float(res.n_leapfrog.double().mean()), card))
+    log("phases 20-22 took {0:.1f} s".format(time.time() - t_run))
+    return nruns[0][2]
+
+
 def run(dev, card):
     import torch
     import george_tpu_torch as george
@@ -2572,6 +2823,11 @@ def run(dev, card):
     (sp_ms, sp_plain, sp_lib, sp_bound, sp_by), \
         (mm_ms, mm_plain, mm_lib, mm_b, mm_by) = time_mxu(dev, card, engine,
                                                         mm_lines)
+
+    # -- phases 20-22: NUTS and HMC -----------------------------------------
+    nuts_launches = run_nuts(phase, log_prob, z0, [r[0] for r in runs],
+                             dense_lp, zd, ms, dev, card)
+    kernels_line[0]["nuts_launches"] = nuts_launches
 
     kernels_line += [{
         "name": "kalman_vg (streaming, N > 32768)",

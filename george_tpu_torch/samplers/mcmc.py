@@ -1,11 +1,14 @@
 # -*- coding: utf-8 -*-
-"""Batch MCMC driver: warmup adaptation + sampling (ChEES-HMC).
+"""Batch MCMC driver: warmup adaptation + sampling for NUTS, HMC and
+ChEES-HMC.
 
 Chains are the leading dimension of every tensor.  Adaptation statistics
 (mean accept probability, Welford moments) pool across the chain batch.
 The run is host-orchestrated: a Python loop over transitions, each one a
 few batched tensor operations plus one batched value+gradient call per
 leapfrog, split into blocks between which a ``progress`` callback runs.
+Trajectory-persistent NUTS runs its draws in blocks of
+:func:`nuts.nuts_draws_persistent` loops, its stream carried across blocks.
 """
 
 from typing import NamedTuple
@@ -15,7 +18,8 @@ import torch
 from .._device import resolve_device
 from . import adaptation as adapt
 from . import chees
-from .hmc import HMCState
+from .hmc import HMCState, hmc_step
+from .nuts import nuts_draws_persistent, nuts_step
 
 __all__ = ["run_mcmc", "MCMCResult"]
 
@@ -39,9 +43,15 @@ class _Pieces(NamedTuple):
     init_step_size: object  # (states, inv_mass, generator) -> float
     warm_step: object       # (carry, in_win, win_end, idx, gen) ->
     #                         (carry, batch-mean accept prob)
-    draw_step: object       # (states, gen, eps, inv_mass, extra) -> states
+    draw_step: object       # (states, gen, eps, inv_mass, extra) ->
+    #                         (states, info)
     schedule: tuple         # (in_window, window_end) numpy arrays
     extra_init: object      # eps0 -> algorithm-specific warmup state
+    # Optional block sampler: (states, gen, n, eps, inv_mass, extra) ->
+    # (states, outs) with outs (z, logp, accept_prob, diverging,
+    # n_leapfrog) already (chains, n, ...): trajectory-persistent NUTS,
+    # whose n-draw loop runs one leapfrog an iteration across transitions.
+    draw_many: object = None
 
 
 class _CountedVG(object):
@@ -83,6 +93,63 @@ def _mass_window_update(da, welford, inv_mass, states, in_win, win_end,
         # Re-center the step size search at each window boundary.
         da = adapt.da_init(torch.exp(da.log_step))
     return da, welford, inv_mass
+
+
+def _build_pieces(vg, algorithm, dim, target_accept, max_depth,
+                  num_leapfrog, dense_mass, adapt_mass, num_warmup,
+                  persistent):
+    """The building blocks of ``algorithm``: ChEES's from
+    :func:`_build_chees_pieces`; NUTS or fixed-length HMC here, per-chain
+    trajectories with every leapfrog one batched value+gradient call for
+    all chains."""
+    if algorithm == "chees":
+        return _build_chees_pieces(vg, dim, target_accept, num_leapfrog,
+                                   dense_mass, adapt_mass, num_warmup)
+    if algorithm == "nuts":
+        def kernel(states, generator, eps, inv_mass):
+            return nuts_step(generator, states, vg, eps, inv_mass,
+                             max_depth=max_depth)
+    elif algorithm == "hmc":
+        def kernel(states, generator, eps, inv_mass):
+            return hmc_step(generator, states, vg, eps, inv_mass,
+                            n_steps=num_leapfrog)
+    else:
+        raise ValueError("unknown algorithm '{0}'".format(algorithm))
+
+    def chain_init(z):
+        logp, grad = vg(z)
+        return HMCState(z, logp, grad)
+
+    def init_step_size(states, inv_mass, generator):
+        return adapt.find_reasonable_step_size_batched(
+            vg, states, inv_mass, generator
+        )
+
+    def warm_step(carry, in_win, win_end, idx, generator):
+        states, da, welford, inv_mass, extra = carry
+        states, info = kernel(states, generator, torch.exp(da.log_step),
+                              inv_mass)
+        accept = torch.mean(info.accept_prob)
+        da = adapt.da_update(da, accept, target=target_accept)
+        if adapt_mass:
+            da, welford, inv_mass = _mass_window_update(
+                da, welford, inv_mass, states, in_win, win_end, dim,
+                dense_mass,
+            )
+        return (states, da, welford, inv_mass, extra), accept
+
+    def draw_step(states, generator, eps, inv_mass, extra):
+        return kernel(states, generator, eps, inv_mass)
+
+    draw_many = None
+    if algorithm == "nuts" and persistent:
+        def draw_many(states, generator, n, eps, inv_mass, extra):
+            return nuts_draws_persistent(generator, states, vg, eps,
+                                         inv_mass, n, max_depth=max_depth)
+
+    return _Pieces(chain_init, init_step_size, warm_step, draw_step,
+                   adapt.build_schedule(num_warmup), lambda eps0: (),
+                   draw_many=draw_many)
 
 
 def _build_chees_pieces(vg, dim, target_accept, max_leapfrog, dense_mass,
@@ -186,32 +253,42 @@ def _run_blocked(pieces, z0, generator, num_warmup, num_samples, block_size,
     eps = torch.exp(da.log_step_avg) if num_warmup > 0 else eps0
 
     block = block_size or max(num_samples, 1)
-    zs, logps, accs, divs, nleap = [], [], [], [], []
-    for done in range(1, num_samples + 1):
-        states, info = pieces.draw_step(states, generator, eps, inv_mass,
-                                        extra)
-        zs.append(states.z)
-        logps.append(states.logp)
-        accs.append(info.accept_prob)
-        divs.append(info.diverging)
-        nleap.append(info.n_leapfrog)
+    chunks = []
+    done = 0
+    while done < num_samples:
+        if pieces.draw_many is not None:
+            n = min(block, num_samples - done)
+            states, outs = pieces.draw_many(states, generator, n, eps,
+                                            inv_mass, extra)
+        else:
+            n = 1
+            states, info = pieces.draw_step(states, generator, eps, inv_mass,
+                                            extra)
+            nleap = info.n_leapfrog
+            if not torch.is_tensor(nleap):
+                nleap = torch.full((num_chains,), nleap, dtype=torch.int64,
+                                   device=device)
+            outs = tuple(v[:, None] for v in (
+                states.z, states.logp, info.accept_prob, info.diverging,
+                nleap))
+        chunks.append(outs)
+        done += n
         if progress and (done % block == 0 or done == num_samples):
             sync()
             progress("sampling", done, num_samples)
 
-    def stack(xs, shape_tail):
-        if not xs:
-            return torch.zeros((num_chains, 0) + shape_tail, dtype=dtype,
+    def cat(i, shape_tail, dt):
+        if not chunks:
+            return torch.zeros((num_chains, 0) + shape_tail, dtype=dt,
                                device=device)
-        return torch.stack(xs, dim=1)
+        return torch.cat([c[i] for c in chunks], dim=1)
 
     return MCMCResult(
-        samples=stack(zs, (dim,)),
-        log_prob=stack(logps, ()),
-        accept_prob=stack(accs, ()),
-        diverging=stack(divs, ()).to(torch.bool),
-        n_leapfrog=torch.tensor(nleap, dtype=torch.int64, device=device)
-        .expand(num_chains, len(nleap)).contiguous(),
+        samples=cat(0, (dim,), dtype),
+        log_prob=cat(1, (), dtype),
+        accept_prob=cat(2, (), dtype),
+        diverging=cat(3, (), torch.bool),
+        n_leapfrog=cat(4, (), torch.int64),
         step_size=eps,
         inv_mass=inv_mass,
         warmup_accept_prob=torch.stack(warm_accs) if warm_accs
@@ -221,36 +298,42 @@ def _run_blocked(pieces, z0, generator, num_warmup, num_samples, block_size,
 
 
 def run_mcmc(log_prob, z0, key, num_warmup=500, num_samples=500,
-             algorithm="nuts", target_accept=None, num_leapfrog=32,
-             dense_mass=False, step_size=None, adapt_mass=True,
-             block_size=None, progress=None, warmup_block_size=None,
-             device=None):
+             algorithm="nuts", target_accept=None, max_depth=10,
+             num_leapfrog=32, dense_mass=False, step_size=None,
+             adapt_mass=True, block_size=None, progress=None,
+             persistent=True, warmup_block_size=None, device=None):
     """Run warmup + sampling for a batch of chains on one device.
 
     :param log_prob: the posterior density: a batched, differentiable
         ``log_prob(z (chains, dim)) -> (chains,)``; when it carries a
         ``batched_value_and_grad`` (as :func:`build_gp_log_prob` attaches
-        on the state-space route) that is used for every gradient.
+        on its fused routes) that is used for every gradient.
     :param z0: (chains, dim) initial positions; their dtype is the run's.
     :param key: an int seed or a ``torch.Generator`` on ``device``.
-    :param algorithm: ``"chees"`` (ChEES-HMC — shared jittered trajectory
-        length adapted by gradient ascent on the ChEES criterion; here
-        ``num_leapfrog`` is the per-iteration leapfrog *cap* and
-        ``target_accept`` defaults to 0.651).  ``"nuts"`` and ``"hmc"``
-        come with a later slice of the port.
+    :param algorithm: ``"nuts"`` (iterative masked tree NUTS, trajectories
+        of at most 2^max_depth - 1 leapfrogs), ``"hmc"`` (fixed
+        ``num_leapfrog`` trajectories), or ``"chees"`` (ChEES-HMC — shared
+        jittered trajectory length adapted by gradient ascent on the ChEES
+        criterion, every chain in lockstep; here ``num_leapfrog`` is the
+        per-iteration leapfrog *cap* and ``target_accept`` defaults to
+        0.651, else 0.8).
+    :param persistent: NUTS only (default on) — trajectory-persistent
+        sampling: chains start their next transition the moment their
+        trajectory terminates instead of idling until the batch's longest
+        one.  Warmup always keeps per-transition lockstep (cross-chain
+        adaptation pooling).  Set False for the per-draw formulation
+        (identical posterior; different random stream).
     :param block_size, warmup_block_size: draws / warmup iterations between
-        ``progress(phase, done, total)`` callbacks.
+        ``progress(phase, done, total)`` callbacks; persistent NUTS runs
+        its draws in loops of ``block_size`` draws.
     :param device: where the run happens (default: the CUDA card; raises
         without one unless ``device="cpu"`` is given).
-    :returns: :class:`MCMCResult` with per-chain draws and diagnostics.
+    :returns: :class:`MCMCResult` with per-chain draws and diagnostics;
+        ``n_leapfrog`` is each chain's own count and ``num_evaluations``
+        every batched value+gradient call of the run.
     """
     device = resolve_device(device)
-    if algorithm in ("nuts", "hmc"):
-        raise NotImplementedError(
-            "algorithm '{0}' is not ported yet (ROADMAP Queue A: NUTS/HMC "
-            "samplers); use algorithm='chees'".format(algorithm)
-        )
-    if algorithm != "chees":
+    if algorithm not in ("nuts", "hmc", "chees"):
         raise ValueError("unknown algorithm '{0}'".format(algorithm))
     z0 = torch.as_tensor(z0, device=device)
     if z0.dim() != 2:
@@ -267,9 +350,10 @@ def run_mcmc(log_prob, z0, key, num_warmup=500, num_samples=500,
 
     vg = _CountedVG(getattr(log_prob, "batched_value_and_grad", None)
                     or _autograd_vg(log_prob))
-    pieces = _build_chees_pieces(
-        vg, dim, _default_target(algorithm, target_accept), num_leapfrog,
-        dense_mass, adapt_mass, num_warmup,
+    pieces = _build_pieces(
+        vg, algorithm, dim, _default_target(algorithm, target_accept),
+        max_depth, num_leapfrog, dense_mass, adapt_mass, num_warmup,
+        persistent,
     )
     with torch.no_grad():
         res = _run_blocked(

@@ -20,6 +20,10 @@ from george_tpu_torch import kernels as tk
 from george_tpu_torch.dsl import compiler, cuda_codegen
 from george_tpu_torch.dsl.specs import available_kernels
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(HERE), "george_tpu_torch", "csrc")
 

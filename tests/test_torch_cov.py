@@ -27,6 +27,10 @@ from george_tpu_torch import kernels as tk
 from george_tpu_torch.dsl import compiler as tcompiler
 from george_tpu_torch.ops import cov
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 
 
@@ -45,6 +49,22 @@ def _leaves(k):
 
 def _points(n, d, seed):
     return np.random.default_rng(seed).uniform(-2.0, 2.0, (n, d))
+
+
+def _jitted_vjp(fn):
+    """``(*args, cotangent) -> (fn(*args), its VJP)`` as numpy, jitted once
+    (eager ``jax.vjp`` of the XLA builder dispatches op by op)."""
+    @jax.jit
+    def both(args, cotangent):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(cotangent)
+
+    def call(*args):
+        out, grads = both(tuple(jnp.asarray(a) for a in args[:-1]),
+                          jnp.asarray(args[-1]))
+        return np.asarray(out), [np.asarray(v) for v in grads]
+
+    return call
 
 
 @pytest.mark.parametrize("name", sorted(_leaves(tk)))
@@ -70,9 +90,7 @@ def test_plain_versions_match_jax_xla_route(name):
     theta[:npar] += 0.1
 
     value = jcompiler._value_builder(node_j)
-    K_ref, vjp = jax.vjp(value, jnp.asarray(theta), jnp.asarray(A1),
-                         jnp.asarray(A2))
-    dth, dA1, dA2 = vjp(jnp.asarray(g))
+    K_ref, (dth, dA1, dA2) = _jitted_vjp(value)(theta, A1, A2, g)
 
     leaf_u = ktu.spec_node()
     p, a1, a2, gt = (torch.as_tensor(v) for v in (theta[:npar], A1, A2, g))
@@ -107,10 +125,9 @@ def test_route_matches_jax_builder(name, monkeypatch):
 
     value_j = jcompiler._value_builder(node_j)
     value_t = tcompiler._value_builder(node_t)
+    ref_vjp = _jitted_vjp(value_j)
     for theta in thetas:
-        K_ref, vjp = jax.vjp(value_j, jnp.asarray(theta), jnp.asarray(X1),
-                             jnp.asarray(X2))
-        refs = [np.asarray(v) for v in vjp(jnp.asarray(g))]
+        K_ref, refs = ref_vjp(theta, X1, X2, g)
         th, x1, x2 = (torch.as_tensor(v).requires_grad_(True)
                       for v in (theta, X1, X2))
         K = value_t(th, x1, x2)
@@ -124,10 +141,8 @@ def test_route_matches_jax_builder(name, monkeypatch):
     # vmap over the parameter vectors: the Function's vmap rule, one
     # batched call, and the batched cotangent in its backward.
     G = rng.standard_normal((3, 19, 13))
-    Kb_ref, vjp = jax.vjp(jax.vmap(value_j, in_axes=(0, None, None)),
-                          jnp.asarray(thetas), jnp.asarray(X1),
-                          jnp.asarray(X2))
-    refs = [np.asarray(v) for v in vjp(jnp.asarray(G))]
+    Kb_ref, refs = _jitted_vjp(jax.vmap(value_j, in_axes=(0, None, None)))(
+        thetas, X1, X2, G)
     th = torch.as_tensor(thetas).requires_grad_(True)
     x1 = torch.as_tensor(X1).requires_grad_(True)
     Kb = torch.func.vmap(value_t, in_dims=(0, None, None))(

@@ -31,6 +31,10 @@ from george_tpu_torch.ops import cov
 
 from test_torch_cov import _leaves
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 EPS32 = float(np.finfo(np.float32).eps)
 

@@ -30,6 +30,10 @@ from george_tpu_torch.ops import dense
 from george_tpu_torch.samplers import build_gp_log_prob as torch_build
 from george_tpu_torch.samplers import run_mcmc as torch_run
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 # float64 on both sides, the same closed forms: ll to 1e-10, gradients to
 # 1e-8 (autograd through the Cholesky against JAX's).
 LL_RTOL, G_RTOL, G_ATOL = 1e-10, 1e-8, 1e-10

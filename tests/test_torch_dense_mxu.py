@@ -32,6 +32,10 @@ from george_tpu_torch.convert import load_reference_parameters
 from george_tpu_torch.ops import batched_mm, dense_mxu
 from george_tpu_torch.samplers import build_gp_log_prob as torch_build
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 # float64 on both sides; the port factors blockwise (explicit inverse
 # blocks, W = T^T T) where JAX's oracle calls one Cholesky and autograd:
 # value and gradient to 1e-8.

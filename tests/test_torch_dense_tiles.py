@@ -39,6 +39,10 @@ from test_torch_dense import (G_ATOL, G_RTOL, LL_RTOL, _config5, _dataset,
                               _jax_vg, _pair, _thetas)
 from test_torch_tile_chol import SIDE, factor_invert_tiles
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 # csrc/dense_vg.cu's warps a block: DV_WARPS up to 8 tiles a side, else
 # DV_WARPS_WIDE.
 WARPS, WARPS_WIDE = 8, 16

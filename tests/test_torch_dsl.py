@@ -19,6 +19,10 @@ from george_tpu_torch import kernels as tk
 from george_tpu_torch.dsl import compiler as tcompiler
 from george_tpu_torch.dsl.specs import load_specs as torch_load_specs
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 
 def _zoo(k):
     """Kernel expressions built from either package's ``kernels`` module."""

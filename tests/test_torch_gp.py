@@ -24,6 +24,10 @@ from george_tpu_torch.convert import load_reference_parameters
 from george_tpu_torch.ops import linalg
 from george_tpu_torch.utils import check_gradient, numerical_gradient
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 RTOL = 1e-9
 
 

@@ -29,6 +29,10 @@ from george_tpu_torch import kernels as tk
 from george_tpu_torch.ops import kalman
 from george_tpu_torch.samplers import build_gp_log_prob as torch_build
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 
 def _zoo(k):
     """tests/test_state_space.py's KERNELS, from either package."""
@@ -60,7 +64,8 @@ def _thetas(theta0, count, scale, seed):
 
 
 def _jax_vg(log_prob, thetas):
-    lp, g = jax.vmap(jax.value_and_grad(log_prob))(jnp.asarray(thetas))
+    lp, g = jax.jit(jax.vmap(jax.value_and_grad(log_prob)))(
+        jnp.asarray(thetas))
     return np.asarray(lp), np.asarray(g)
 
 

@@ -31,6 +31,10 @@ from george_tpu_torch.ops import state_space as tss
 
 from test_torch_kalman import _dataset, _thetas, _zoo
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 
 def _case(name, n):
     """(vg, thetas): the zoo kernel with a fitted mean and log white noise,

@@ -32,6 +32,10 @@ from george_tpu_torch.samplers import diagnostics as tdiag
 from george_tpu_torch.samplers import build_gp_log_prob as torch_build
 from george_tpu_torch.samplers import run_mcmc as torch_run
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 
 
@@ -165,8 +169,13 @@ def test_run_mcmc_options():
                       num_samples=5, device="cpu")
     np.testing.assert_array_equal(again.samples.numpy(), res.samples.numpy())
     for algorithm in ("nuts", "hmc"):
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            torch_run(lp_t, z0, 0, algorithm=algorithm, device="cpu")
+        res = torch_run(lp_t, z0, 0, algorithm=algorithm, num_warmup=2,
+                        num_samples=2, max_depth=2, num_leapfrog=2,
+                        device="cpu")
+        assert res.samples.shape == (4, 2, 2)
+        assert np.all(np.isfinite(res.samples.numpy()))
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        torch_run(lp_t, z0, 0, algorithm="mala", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             torch_run(lp_t, z0, 0, algorithm="chees")

@@ -28,6 +28,10 @@ from george_tpu_torch.samplers import build_gp_log_prob as torch_build
 
 from test_torch_kalman import _dataset, _thetas, _zoo
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 
 def _torch_ll_and_grad(kernel, thetas, x, y, v, filter_ll):
     terms = tss.extract_terms(kernel.spec_node())

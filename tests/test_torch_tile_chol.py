@@ -27,6 +27,10 @@ import torch
 
 from george_tpu_torch.ops import dense_mxu
 
+# One intra-op thread: the tensors here are small, and the suite's workers
+# run side by side (several threads each cost more than they gain).
+torch.set_num_threads(1)
+
 SIDE = 16
 
 

@@ -35,7 +35,12 @@ hand-written CUDA kernels:
   value+gradient a batched build, cuBLAS products and one launch of the
   spine kernel (``csrc/dense_spine.cu``) per 128-wide panel; and the
   batched A B^T benchmark (``tools/batched_mm.py``, the port of
-  ``benchmarks/pallas_batched_mm.py``) over ``csrc/batched_mmT.cu``.
+  ``benchmarks/pallas_batched_mm.py``) over ``csrc/batched_mmT.cu``;
+* the GP API's O(N) state-space solver (``examples/07_state_space.py``'s
+  model and data, ``GP(kernel, solver=StateSpaceSolver)``, float64) at
+  N = 20000 and 100,000, every ``grad_log_likelihood`` one launch of the
+  Kalman kernel at B = 1, and ``optimize.minimize`` (batched restarts,
+  every evaluation one launch at B = 1 + restarts).
 
 Phases (any failure exits non-zero):
 
@@ -143,7 +148,20 @@ Phases (any failure exits non-zero):
 22. HMC on the main path (4096 chains, 8 leapfrogs, 100 + 100) against
     phase 4's means and its warmup acceptance against the 0.8 target, and
     NUTS on the dense path (phase 7's, 4096 chains, 50 + 50) over the dense
-    kernel.
+    kernel;
+23. the GP API's state-space solver in float64: at N = 2000 against the
+    ``BasicSolver`` GP (log-likelihood at rtol 1e-9, gradient 1e-7,
+    predictive mean and variance 1e-8); at N = 20000 and 100,000
+    ``compute``, ``log_likelihood``, ``grad_log_likelihood``,
+    ``apply_inverse``, ``predict`` at 1000 points with ``return_var`` and
+    ``sample(size=2)``, each timed, the Kalman launches equal to the
+    gradient calls, the kernel route's gradient against autograd through
+    the associative-scan filter (rtol 1e-8) and both timed; a pickled
+    ``BasicSolver`` GP answering without ``compute``; ``optimize.minimize``
+    on the main path's model (63 restarts) and on the N = 20000 GP (15
+    restarts), launches equal to evaluations, each optimum within 1e-6
+    relative of ``scipy.optimize.minimize(method="L-BFGS-B")`` over
+    ``nll`` / ``grad_nll`` from the best start.
 
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
@@ -308,6 +326,17 @@ MM_B, MM_N, MM_REP = 4096, 128, 20
 # product of length N rounds within ~sqrt(N) / 2 ulps of that, typically);
 # float64 within 1e-12 of it.
 MM_ULPS = 16
+# Phase 23: examples/07_state_space.py's model and data through the GP
+# API's state-space solver, at the example's N and a long series; the check
+# against the dense solver at SS_CHECK_N; predictions at SS_PREDICT points;
+# the fits' restarts.
+SS_N = 20_000
+SS_LONG_N = 100_000
+SS_CHECK_N = 2000
+SS_PREDICT = 1000
+SS_TIMING_REPS = 20
+FIT_RESTARTS_MAIN = 63
+FIT_RESTARTS_SS = 15
 
 
 def log(*args):
@@ -518,6 +547,26 @@ def kalman_call(vg, theta, segments=None):
                             segments=segments)
 
 
+def reverse_mode_grad(vg, theta):
+    """The gradient of the plain Kalman log-likelihood at ``theta`` by
+    autograd over the real filter (``kalman_vg_torch`` carries it in
+    forward mode)."""
+    import torch
+    from george_tpu_torch.ops import kalman
+
+    spec = vg.spec
+    dt, y, v = vg.series(theta)
+    n_scalar = spec.n_mean + spec.n_wn
+    with torch.enable_grad():
+        th = theta.detach().clone().requires_grad_(True)
+        r = y - th[:, :1] if spec.n_mean else y
+        var = v + torch.exp(th[:, spec.n_mean:spec.n_mean + 1]) \
+            if spec.n_wn else v
+        ll = kalman.kalman_loglike(spec.terms, th[:, n_scalar:], dt, r, var)
+        g = torch.autograd.grad(ll.sum(), th)[0]
+    return g[:, list(spec.active)].detach()
+
+
 def compare(vg, theta, what, float32_like_plain=False, segments=(None,)):
     """float32 and float64 Kalman kernel against the float64 plain version,
     at each segment count of ``segments`` (None: the launcher's).
@@ -546,6 +595,13 @@ def compare(vg, theta, what, float32_like_plain=False, segments=(None,)):
         log("  {0} float32 plain version: max |ll err| {1:.3e}, max |grad "
             "err| {2:.3e}; median over chains |ll err|/|ll| {3:.3e}, "
             "|grad err| {4:.3e}".format(what, p_ll, p_g, p_rel, p_gmed))
+        # Beside the forward-mode gradient the gate reads, the same float32
+        # filter's gradient by reverse mode (autograd over the real
+        # arithmetic), printed only, so that the two yardsticks compare.
+        a_g = (reverse_mode_grad(vg, t32).double() - g_ref).abs().amax(dim=1)
+        log("  {0} float32 plain version, gradient by reverse mode: max "
+            "|grad err| {1:.3e}, median over chains {2:.3e}".format(
+                what, float(a_g.max()), float(a_g.median())))
     errs = {}
     for S, dtype in [(S, dt) for S in segments
                      for dt in (torch.float32, torch.float64)]:
@@ -801,6 +857,33 @@ def cov_trees():
          + k.Matern32Kernel(metric=1.4, ndim=2, axes=[1],
                             block=[(-0.5, 0.5)]), 1),
     ]
+
+
+def example07_kernel():
+    """``examples/07_state_space.py``'s kernel."""
+    from george_tpu_torch import kernels
+
+    return 1.0 * kernels.Matern32Kernel(2.0) + 0.3 * kernels.ExpKernel(0.5)
+
+
+def example07_data(n, seed=42):
+    """``examples/07_state_space.py``'s data at ``n`` points."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 100, n))
+    yerr = 0.1 * np.ones(n)
+    y = np.sin(t) + 0.3 * np.cos(3.1 * t) + yerr * rng.standard_normal(n)
+    return t, y, yerr
+
+
+def example07_spec():
+    """The Kalman kernel's spec on the state-space GP's gradient route: no
+    mean parameter, the log white noise frozen, the kernel's four
+    parameters active."""
+    from george_tpu_torch.ops import kalman
+
+    return kalman.make_kalman_vg(example07_kernel().spec_node(), [0.0, 1.0],
+                                 [0.0, 0.0], [1.0, 1.0], 0, 1,
+                                 (1, 2, 3, 4)).spec
 
 
 def bench_prior(gp, device, dtype):
@@ -2388,6 +2471,281 @@ def run_nuts(phase, log_prob, z0, chees_runs, dense_lp, zd, kernel_ms, dev,
     return nruns[0][2]
 
 
+def cuda_ms(fn):
+    """``(fn(), ms)``: one call between two CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def ss_gp_calls(gp, t, y, yerr, ts, seed):
+    """Each call of the GP API once, timed: ``({call: result}, {call:
+    ms})``."""
+    import torch
+
+    results, times = {}, {}
+    for name, fn in (
+            ("compute", lambda: gp.compute(t, yerr)),
+            ("log_likelihood", lambda: gp.log_likelihood(y)),
+            ("grad_log_likelihood", lambda: gp.grad_log_likelihood(y)),
+            ("apply_inverse", lambda: gp.apply_inverse(y)),
+            ("predict", lambda: gp.predict(y, ts, return_var=True)),
+            ("sample", lambda: gp.sample(
+                size=2, generator=torch.Generator().manual_seed(seed)))):
+        results[name], times[name] = cuda_ms(fn)
+    return results, times
+
+
+def max_rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+
+def scan_gradient(terms, theta_k, t, r, v):
+    """The plain route's value and gradient: autograd through the
+    associative-scan filter (``kalman_loglike_parallel``), B chains."""
+    import torch
+    from george_tpu_torch.ops import state_space as sskf
+
+    with torch.enable_grad():
+        th = theta_k.detach().clone().requires_grad_(True)
+        ll = sskf.kalman_loglike_parallel(terms, th, torch.diff(t), r, v)
+        return ll.detach(), torch.autograd.grad(ll.sum(), th)[0]
+
+
+def fit_against_scipy(gp, y, restarts, dev, what, card):
+    """``optimize.minimize`` with ``restarts`` against scipy's L-BFGS-B
+    over the GP's own ``nll`` / ``grad_nll`` from the best start: (result,
+    launches, wall seconds)."""
+    import torch
+    from scipy.optimize import minimize as sp_minimize
+    from george_tpu_torch import optimize
+    from george_tpu_torch.ops import kalman
+
+    kalman.kalman_vg.launches = 0
+    t0 = time.time()
+    res = optimize.minimize(gp, y, restarts=restarts, device=dev,
+                            generator=torch.Generator().manual_seed(0),
+                            set_params=False)
+    wall = time.time() - t0
+    launches = kalman.kalman_vg.launches
+    best = int(np.argmin(np.where(np.isnan(res.restart_funs), np.inf,
+                                  res.restart_funs)))
+    t0 = time.time()
+    ref = sp_minimize(gp.nll, res.restart_x0[best], jac=gp.grad_nll,
+                      args=(y,), method="L-BFGS-B")
+    sp_wall = time.time() - t0
+    log("  {0}: {1} restarts, {2} batched evaluations, {3} kalman_vg "
+        "launches, the winner (start {4}) {5} iterations, {6:.2f} s; "
+        "restarts' objectives {7:.6f} to {8:.6f}; scipy L-BFGS-B from the "
+        "same start: {9} evaluations, {10:.2f} s; on {11}".format(
+            what, restarts + 1, res.evaluations, launches, best, res.nit,
+            wall, float(np.nanmin(res.restart_funs)),
+            float(np.nanmax(np.where(np.isfinite(res.restart_funs),
+                                     res.restart_funs, np.nan))),
+            ref.nfev, sp_wall, card))
+    check(launches == res.evaluations and res.success,
+          "{0}: kalman_vg launches {1} == evaluations {2}, converged".format(
+              what, launches, res.evaluations))
+    rel = abs(res.fun - ref.fun) / abs(ref.fun)
+    check(rel <= 1e-6, "{0}: optimum {1:.10f} against scipy's {2:.10f} "
+          "(relative {3:.2e} <= 1e-6)".format(what, res.fun, ref.fun, rel))
+    return res, launches, wall
+
+
+def run_state_space_gp(phase, dev, card):
+    """Phase 23: the GP API's O(N) state-space solver and the fit.
+    Returns the kernels line's entries for its two shapes."""
+    import pickle
+
+    import torch
+    import george_tpu_torch as george
+    from george_tpu_torch.ops import kalman
+    from george_tpu_torch.ops import state_space as sskf
+    from george_tpu_torch.samplers import build_gp_log_prob
+    from george_tpu_torch.solvers import StateSpaceSolver
+
+    t_run = time.time()
+    phase("23: the GP API's state-space solver (examples/07_state_space.py, "
+          "float64) at N = {0} and {1}; optimize.minimize".format(
+              SS_N, SS_LONG_N))
+    node = example07_kernel().spec_node()
+    terms = sskf.extract_terms(node)
+    ts = np.linspace(-5.0, 105.0, SS_PREDICT)
+
+    # Against the dense solver on the card.
+    t, y, yerr = example07_data(SS_CHECK_N)
+    gs = george.GP(example07_kernel(), solver=StateSpaceSolver, device=dev)
+    gd = george.GP(example07_kernel(), device=dev)
+    rs, _ = ss_gp_calls(gs, t, y, yerr, ts, 1)
+    rd, _ = ss_gp_calls(gd, t, y, yerr, ts, 1)
+    for name, key, tol in (("log-likelihood", "log_likelihood", 1e-9),
+                           ("gradient", "grad_log_likelihood", 1e-7),
+                           ("K^-1 y", "apply_inverse", 1e-8)):
+        err = max_rel(rs[key], rd[key])
+        check(err <= tol, "N={0}: state-space {1} against the dense "
+              "solver's, max relative {2:.2e} <= {3:g}".format(
+                  SS_CHECK_N, name, err, tol))
+    for i, name in enumerate(("predictive mean", "predictive variance")):
+        err = max_rel(rs["predict"][i], rd["predict"][i])
+        check(err <= 1e-8, "N={0}: {1} at {2} points against the dense "
+              "solver's, max relative {3:.2e} <= 1e-8".format(
+                  SS_CHECK_N, name, SS_PREDICT, err))
+    # A pickled BasicSolver GP answers on the card without compute.
+    ll0 = gd.log_likelihood(y)
+    loaded = pickle.loads(pickle.dumps(gd))
+
+    def refuse(*args, **kwargs):
+        raise Failure("the unpickled GP recomputed")
+
+    loaded.compute = refuse
+    check(loaded.solver.factor.device.type == "cuda" and
+          loaded.log_likelihood(y) == ll0,
+          "a pickled BasicSolver GP answers on {0} without compute "
+          "(log-likelihood {1:.9f})".format(loaded.device, ll0))
+
+    entries = []
+    fit_gp = None
+    kalman.kalman_vg.launches = 0
+    grads = 0
+    for n in (SS_N, SS_LONG_N):
+        t, y, yerr = example07_data(n)
+        gp = george.GP(example07_kernel(), solver=StateSpaceSolver,
+                       device=dev)
+        res, times = ss_gp_calls(gp, t, y, yerr, ts, 2)
+        grads += 1
+        mu, var = res["predict"]
+        draws = res["sample"]
+        check(all(np.all(np.isfinite(a)) for a in (res["grad_log_likelihood"],
+                                                  res["apply_inverse"], mu,
+                                                  var, draws))
+              and np.isfinite(res["log_likelihood"]) and draws.shape ==
+              (2, n) and mu.shape == (SS_PREDICT,) and np.all(var > 0),
+              "N={0}: finite results of the expected shapes, predictive "
+              "variance > 0".format(n))
+        log("  N={0}: compute {1:.2f} ms, log_likelihood {2:.2f}, "
+            "grad_log_likelihood {3:.2f}, apply_inverse {4:.2f}, predict "
+            "({5} points, return_var) {6:.2f}, sample(size=2) {7:.2f} "
+            "(CUDA events, one call each; ll {8:.6f}); on {9}".format(
+                n, times["compute"], times["log_likelihood"],
+                times["grad_log_likelihood"], times["apply_inverse"],
+                SS_PREDICT, times["predict"], times["sample"],
+                res["log_likelihood"], card))
+        # The kernel route's gradient against autograd through the scan.
+        solver = gp.solver
+        theta_k = torch.as_tensor(gp.kernel.get_parameter_vector(
+            include_frozen=True), device=dev)[None]
+        t_s = torch.as_tensor(solver._t, device=dev)
+        r_s = torch.as_tensor(y[solver._order], device=dev)
+        v_s = torch.as_tensor(solver._v, device=dev)
+        _, g_scan = scan_gradient(terms, theta_k, t_s, r_s, v_s)
+        g_scan = g_scan[0].cpu().numpy()
+        err = max_rel(res["grad_log_likelihood"], g_scan)
+        if n == SS_N:
+            check(err <= 1e-8, "N={0}: the kernel route's gradient against "
+                  "autograd through the associative-scan filter, max "
+                  "relative {1:.2e} <= 1e-8".format(n, err))
+            fit_gp, fit_y, g_err = gp, y, float(np.max(np.abs(
+                res["grad_log_likelihood"] - g_scan)))
+        else:
+            log("  N={0}: the kernel route's gradient against the scan's, "
+                "max relative {1:.2e}".format(n, err))
+        # The gradient by the kernel alone, and by the plain scan.
+        vg = kalman.make_kalman_vg(node, solver._t, y[solver._order],
+                                   gp._yerr2[solver._order], 0, 1,
+                                   (1, 2, 3, 4))
+        theta_full = torch.as_tensor(gp.get_parameter_vector(
+            include_frozen=True)[1:], device=dev)[None].contiguous()
+        launches = kalman.kalman_vg.launches
+        k_ms, k_min = median_ms(lambda: vg(theta_full), SS_TIMING_REPS)
+        s_ms, s_min = median_ms(lambda: scan_gradient(terms, theta_k, t_s,
+                                                      r_s, v_s), 3, warmup=1)
+        kalman.kalman_vg.launches = launches
+        bound, by = kalman_bound(vg.spec, 1, n, itemsize=8)
+        log("  N={0}: the gradient by kalman_vg.cu at B=1 (S={1}) {2:.4f} "
+            "ms (min {3:.4f}), by autograd through the associative-scan "
+            "filter {4:.2f} ms (min {5:.2f}); bound {6:.4f} ms ({7}); on "
+            "{8}".format(n, kalman.choose_segments(1, n, vg.spec.dim), k_ms,
+                         k_min, s_ms, s_min, bound, by, card))
+        if n == SS_N:
+            entry = dict(ms=k_ms, plain_ms=s_ms, bound_ms=bound, bound_by=by)
+    gp_launches = kalman.kalman_vg.launches
+    check(gp_launches == grads, "kalman_vg launches {0} == "
+          "grad_log_likelihood calls {1}".format(gp_launches, grads))
+    entries.append(dict({
+        "name": "kalman_vg (GP API state-space solver, B = 1, N = {0}, "
+                "float64)".format(SS_N),
+        "route": "cuda",
+        "source": "george_tpu_torch/csrc/kalman_vg.cu",
+        "replaces": "george_tpu/ops/pallas_kalman.py:66",
+        "launches": gp_launches,
+        "max_abs_err": g_err,
+        "library_ms": None}, **entry))
+
+    # optimize.minimize: the main path's model, then the state-space GP.
+    x, y, yerr = bench_data(N)
+    gp = main_gp(dev)
+    gp.compute(x, yerr)
+    fit_against_scipy(gp, y, FIT_RESTARTS_MAIN, dev,
+                      "fit of the main path's model (N={0})".format(N), card)
+    res, fit_launches, _ = fit_against_scipy(
+        fit_gp, fit_y, FIT_RESTARTS_SS, dev,
+        "fit of the state-space GP (N={0})".format(SS_N), card)
+    # The fit's shape, B = 1 + restarts at the restarts' starts: the
+    # kernel against autograd through the scan, and both timed.
+    lp, _ = build_gp_log_prob(fit_gp, fit_gp._x, fit_y,
+                              np.sqrt(fit_gp._yerr2), device=dev)
+    vg = lp.kalman_vg
+    spec = vg.spec
+    base = fit_gp.get_parameter_vector(include_frozen=True)
+    theta = np.tile(base, (res.restart_x0.shape[0], 1))
+    theta[:, list(spec.active)] = res.restart_x0
+    theta = torch.as_tensor(theta, device=dev).contiguous()
+    order = fit_gp.solver._order
+    t_s = torch.as_tensor(fit_gp.solver._t, device=dev)
+    r_s = torch.as_tensor(fit_y[order], device=dev) - theta[:, :1]
+    v_s = torch.as_tensor(fit_gp._yerr2[order], device=dev) + \
+        torch.exp(theta[:, 1:2])
+    _, g_k = vg(theta)
+    _, g_s = scan_gradient(spec.terms, theta[:, 2:], t_s, r_s, v_s)
+    g_s = g_s[:, [a - 2 for a in spec.active]]
+    fit_err = float(torch.max(torch.abs(g_k - g_s)))
+    check(fit_err <= 1e-8 * float(torch.max(torch.abs(g_s))),
+          "the fit's kernel gradient at B={0} against the scan's, max abs "
+          "{1:.3e}".format(theta.shape[0], fit_err))
+    k_ms, _ = median_ms(lambda: vg(theta), SS_TIMING_REPS)
+    s_ms, _ = median_ms(lambda: scan_gradient(spec.terms, theta[:, 2:], t_s,
+                                              r_s, v_s), 3, warmup=1)
+    bound, by = kalman_bound(spec, theta.shape[0], SS_N, itemsize=8)
+    log("  the fit's shape: kalman_vg.cu at B={0}, N={1} (S={2}) {3:.4f} "
+        "ms, the plain scan {4:.2f} ms, bound {5:.4f} ms ({6}); on "
+        "{7}".format(theta.shape[0], SS_N, kalman.choose_segments(
+            theta.shape[0], SS_N, spec.dim), k_ms, s_ms, bound, by, card))
+    entries.append({
+        "name": "kalman_vg (optimize.minimize, B = {0}, N = {1}, "
+                "float64)".format(theta.shape[0], SS_N),
+        "route": "cuda",
+        "source": "george_tpu_torch/csrc/kalman_vg.cu",
+        "replaces": "george_tpu/ops/pallas_kalman.py:66",
+        "launches": fit_launches,
+        "max_abs_err": fit_err,
+        "ms": k_ms,
+        "plain_ms": s_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    })
+    log("phase 23 took {0:.1f} s".format(time.time() - t_run))
+    return entries
+
+
 def run(dev, card):
     import torch
     import george_tpu_torch as george
@@ -2481,6 +2839,8 @@ def run(dev, card):
                       [("dense zoo " + name, lp.dense_vg)
                        for name, (_, lp) in dzoo.items()])
     built += cov_instances() + mxu_instances()
+    built += [("state-space GP (phase 23)", torch.float64,
+               example07_spec().instance(torch.float64))]
     keys = {inst.key() for _, _, inst in built}
     zoo_built = [b for b in instances([("kalman zoo " + name, v)
                                        for name, (_, v) in zoo_vgs.items()])
@@ -2829,6 +3189,9 @@ def run(dev, card):
                              dense_lp, zd, ms, dev, card)
     kernels_line[0]["nuts_launches"] = nuts_launches
 
+    # -- phase 23: the GP API's state-space solver and the fit ---------------
+    ss_lines = run_state_space_gp(phase, dev, card)
+
     kernels_line += [{
         "name": "kalman_vg (streaming, N > 32768)",
         "route": "cuda",
@@ -2878,7 +3241,7 @@ def run(dev, card):
         "bound_ms": mm_b,
         "bound_by": mm_by,
         "library_ms": mm_lib,
-    }]
+    }] + ss_lines
     return kernels_line
 
 

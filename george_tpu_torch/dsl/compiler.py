@@ -16,6 +16,12 @@ Large stationary builds on the card take the hand-written tiled kernel
 (``ops/cov.py``) under ``config.pallas_covariance`` (:func:`use_pallas`):
 the metric is applied to the gathered columns outside the kernel, so
 autograd carries the metric gradients through the kernel's dA1 and dA2.
+
+The kernels' gradient tensors (:func:`kernel_gradient_fn`,
+:func:`kernel_x1_gradient_fn`, :func:`kernel_x2_gradient_fn`) are forward
+mode, one pass a parameter or an input axis, over the tree's plain route:
+the covariance kernel's ``autograd.Function`` has a VJP and no forward
+rule, so the gradient builds never take it.
 """
 
 import importlib
@@ -30,6 +36,7 @@ from .specs import available_kernels
 
 __all__ = [
     "Leaf", "Op", "node_size", "kernel_value_fn", "kernel_diag_fn",
+    "kernel_gradient_fn", "kernel_x1_gradient_fn", "kernel_x2_gradient_fn",
     "pairwise_squared_distance", "metric_r2_matrix", "use_pallas",
 ]
 
@@ -282,11 +289,12 @@ def use_pallas(leaf, n1, n2, dtype, device):
 
 
 @lru_cache(maxsize=None)
-def _value_builder(node: Node):
-    """Build ``f(theta, X1, X2) -> (N1, N2)`` for a kernel tree."""
+def _value_builder(node: Node, plain=False):
+    """Build ``f(theta, X1, X2) -> (N1, N2)`` for a kernel tree; with
+    ``plain`` no build takes the covariance kernel."""
     if isinstance(node, Op):
-        f1 = _value_builder(node.k1)
-        f2 = _value_builder(node.k2)
+        f1 = _value_builder(node.k1, plain)
+        f2 = _value_builder(node.k2, plain)
         n1 = node_size(node.k1)
         if node.op == "sum":
             return lambda th, X1, X2: f1(th[:n1], X1, X2) + f2(th[n1:], X1, X2)
@@ -308,8 +316,8 @@ def _value_builder(node: Node):
 
         def value(theta, X1, X2):
             p, mp = theta[:node.nparams], theta[node.nparams:]
-            if use_pallas(node, X1.shape[0], X2.shape[0], X1.dtype,
-                          X1.device):
+            if not plain and use_pallas(node, X1.shape[0], X2.shape[0],
+                                        X1.dtype, X1.device):
                 from ..ops import cov
                 return cov.make_stationary_cov(node).apply(
                     p, metric_transform(mp, X1), metric_transform(mp, X2))
@@ -389,3 +397,63 @@ def kernel_value_fn(node: Node):
 def kernel_diag_fn(node: Node):
     """Row-wise ``k(x1_i, x2_i)`` evaluator (``value_diagonal``)."""
     return _diag_builder(node)
+
+
+def _tangents(fn, primal, directions):
+    """The forward-mode derivatives of ``fn`` at ``primal`` along each of
+    ``directions``, stacked on a last axis."""
+    import torch.autograd.forward_ad as fwAD
+
+    out = []
+    for direction in directions:
+        with fwAD.dual_level():
+            value = fn(fwAD.make_dual(primal, direction))
+            tangent = fwAD.unpack_dual(value).tangent
+        out.append(torch.zeros_like(value) if tangent is None else tangent)
+    if not out:                          # no parameters: (N1, N2, 0)
+        return fn(primal)[..., None][..., :0]
+    return torch.stack(out, dim=-1)
+
+
+def _unit_columns(X, axis):
+    e = torch.zeros_like(X)
+    e[:, axis] = 1.0
+    return e
+
+
+def kernel_gradient_fn(node: Node):
+    """``g(theta, X1, X2) -> (N1, N2, full_size)``: the hyperparameter
+    gradient tensor, forward mode over the parameter vector on the plain
+    route."""
+    value = _value_builder(node, True)
+
+    def gradient(theta, X1, X2):
+        eye = torch.eye(theta.shape[0], dtype=theta.dtype,
+                        device=theta.device)
+        return _tangents(lambda th: value(th, X1, X2), theta, eye)
+
+    return gradient
+
+
+def kernel_x1_gradient_fn(node: Node):
+    """``g(theta, X1, X2) -> (N1, N2, ndim)``: d k(x1_i, x2_j) / d x1_i,
+    forward mode along each input axis on the plain route (row i of K
+    depends on row i of X1 alone)."""
+    value = _value_builder(node, True)
+
+    def x1_gradient(theta, X1, X2):
+        return _tangents(lambda X: value(theta, X, X2), X1,
+                         [_unit_columns(X1, k) for k in range(X1.shape[1])])
+
+    return x1_gradient
+
+
+def kernel_x2_gradient_fn(node: Node):
+    """``g(theta, X1, X2) -> (N1, N2, ndim)``: d k(x1_i, x2_j) / d x2_j."""
+    value = _value_builder(node, True)
+
+    def x2_gradient(theta, X1, X2):
+        return _tangents(lambda X: value(theta, X1, X), X2,
+                         [_unit_columns(X2, k) for k in range(X2.shape[1])])
+
+    return x2_gradient

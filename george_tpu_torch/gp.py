@@ -9,10 +9,16 @@ the alpha cache keyed on the value of ``y``.  The full parameter vector is
 laid out [mean | white-noise | kernel].
 
 Everything runs on the GP's device in its dtype (default: the CUDA card,
-float64); arrays come in and go out as numpy.  On the card, large
+float64); arrays come in and go out as numpy.  The solver is george's
+choice: ``TrivialSolver`` for an absent or empty kernel, ``BasicSolver``
+(dense Cholesky) otherwise, or the one passed as ``solver=``, e.g.
+``StateSpaceSolver`` (O(N), 1-D Markovian kernels).  On the card, large
 stationary covariance builds (``compute``, the gradient, the cross and
 prior matrices of ``predict``) go through the tiled kernel of
-``ops/cov.py`` under ``config.pallas_covariance``.  The one deliberate
+``ops/cov.py`` under ``config.pallas_covariance``, and the state-space
+solver's likelihood gradient is one launch of the Kalman value+gradient
+kernel (``ops/kalman.py``).  A pickled GP carries host arrays, its device
+and its dtype.  The one deliberate
 difference of API: ``sample`` and ``sample_conditional`` draw from a
 ``torch.Generator`` (default: a fresh one) where the JAX package used the
 global ``np.random``.
@@ -32,7 +38,7 @@ from ._device import resolve_device
 from .dsl import compiler
 from .modeling import ModelSet, ConstantModel
 from .ops import linalg
-from .solvers.basic import BasicSolver
+from .solvers import TrivialSolver, BasicSolver
 from .utils import multivariate_gaussian_samples, standard_normal
 
 __all__ = ["GP"]
@@ -75,14 +81,18 @@ class GP(ModelSet):
     :param white_noise: scalar or model for the *log* of the white noise
         variance added to the diagonal (default log(TINY)).
     :param fit_white_noise: include white-noise parameters in the active set.
-    :param device: where the dense factorization runs (default: the CUDA
-        card; raises without one unless ``device="cpu"`` is given).
-    :param dtype: the factorization's floating type (default float64).
+    :param solver: solver class (``TrivialSolver`` / ``BasicSolver`` /
+        ``StateSpaceSolver``; default ``TrivialSolver`` for an absent or
+        empty kernel, ``BasicSolver`` otherwise).
+    :param device: where the solver runs (default: the CUDA card; raises
+        without one unless ``device="cpu"`` is given).
+    :param dtype: the solver's floating type (default float64).
+    :param kwargs: forwarded to the solver's constructor.
     """
 
     def __init__(self, kernel=None, fit_kernel=True, mean=None,
                  fit_mean=None, white_noise=None, fit_white_noise=None,
-                 device=None, dtype=torch.float64):
+                 solver=None, device=None, dtype=torch.float64, **kwargs):
         self.device = resolve_device(device)
         self.dtype = dtype
         self._computed = False
@@ -119,6 +129,14 @@ class GP(ModelSet):
         for name, freeze in frozen.items():
             if freeze:
                 self.models[name].freeze_all_parameters()
+
+        if solver is None:
+            # An absent or empty kernel needs only the diagonal solver.
+            empty = kernels.EmptyKernel.kernel_type
+            solver = TrivialSolver if kernel is None \
+                or kernel.kernel_type == empty else BasicSolver
+        self.solver_type = solver
+        self.solver_kwargs = dict(kwargs)
 
     # -- component access -------------------------------------------------------
 
@@ -233,7 +251,8 @@ class GP(ModelSet):
             np.broadcast_to(yerr, (n,)) ** 2, dtype=np.float64
         )
         noise = self._yerr2 + np.exp(self._call_white_noise(self._x))
-        self.solver = BasicSolver(self.kernel, self.device, self.dtype)
+        self.solver = self.solver_type(self.kernel, device=self.device,
+                                       dtype=self.dtype, **self.solver_kwargs)
         self.solver.compute(self._x, np.sqrt(noise))
         self._const = -0.5 * (
             n * np.log(2 * np.pi) + self.solver.log_determinant
@@ -274,9 +293,11 @@ class GP(ModelSet):
         """Gradient of the log-likelihood w.r.t. the active parameters.
 
         Ordering matches :meth:`get_parameter_vector`: mean, white noise,
-        kernel.  Kernel and white-noise terms come from one autograd pass
-        through the Cholesky (``ops/linalg.grad_core_fn``); the mean term is
-        the (d mu / d theta) @ alpha contraction.
+        kernel.  Kernel and white-noise terms come from the solver's
+        ``grad_core`` (the dense solvers: one autograd pass through the
+        Cholesky; the state-space solver: the Kalman value+gradient
+        kernel or the scan filter); the mean term is the
+        (d mu / d theta) @ alpha contraction.
         """
         if not self.recompute(quiet=quiet):
             return np.zeros(len(self), dtype=np.float64)
@@ -288,17 +309,10 @@ class GP(ModelSet):
                 return np.zeros(len(self), dtype=np.float64)
             raise
 
-        core = linalg.grad_core_fn(self.kernel.spec_node())
-        g_theta, g_wn_vec, alpha = (self._host(v) for v in core(
-            self._tensor(self.kernel.get_parameter_vector(
-                include_frozen=True)),
-            self._tensor(self._call_white_noise(self._x)),
-            self._tensor(self._x), self._tensor(r_host),
-            self._tensor(self._yerr2)))
+        g_theta, g_wn, alpha = self.solver.grad_core(self, r_host)
 
         grad = np.empty(len(self))
         n = 0
-        x_in = self._model_input(self._x)
         n_mean = len(self.mean)
         if n_mean:
             try:
@@ -311,8 +325,7 @@ class GP(ModelSet):
             n += n_mean
         n_wn = len(self.white_noise)
         if n_wn:
-            wn_grad = np.atleast_2d(self.white_noise.get_gradient(x_in))
-            grad[n:n + n_wn] = wn_grad @ g_wn_vec
+            grad[n:n + n_wn] = g_wn
             n += n_wn
         n_k = len(self.kernel)
         if n_k:
@@ -384,7 +397,7 @@ class GP(ModelSet):
             return mean_pred
 
         # One multi-RHS solve W = K^-1 Ks^T serves both output forms.
-        W = linalg.solve_fn(self.solver.factor, Ks.T)
+        W = self.solver.apply_inverse(Ks.T)
         if return_var:
             diag_prior = self._matrix(cross, xs, diag=True)
             return mean_pred, self._host(
@@ -396,15 +409,19 @@ class GP(ModelSet):
 
         Returns ``f(t, return_var=True) -> (mu, var)`` over the current
         factorization and alpha, with the cross-covariance, solve and
-        variance computed on the GP's device.
+        variance computed on the GP's device.  Needs a dense factor
+        (``BasicSolver``).
         """
         self.recompute()
         alpha = self._tensor(self._compute_alpha(y, True))
+        L = getattr(self.solver, "factor", None)
+        if L is None:
+            raise NotImplementedError(
+                "predictor() requires a dense-factor solver")
         node = self.kernel.spec_node()
         theta = self._tensor(self.kernel.get_parameter_vector(
             include_frozen=True))
         x_train = self._tensor(self._x)
-        L = self.solver.factor
         value = linalg.predict_fn(node)
         diag_fn = compiler.kernel_diag_fn(node)
 

@@ -127,6 +127,90 @@ class Kernel(ModelSet):
         with torch.no_grad():
             return fn(node)(theta, x1, x2)
 
+    def _gradient(self, make, x1, x2, device, dtype):
+        device = resolve_device(device)
+        x1 = self._as_coords(x1, device, dtype)
+        x2 = x1 if x2 is None else self._as_coords(x2, device, dtype)
+        theta = torch.as_tensor(
+            self.get_parameter_vector(include_frozen=True), device=device
+        ).to(dtype)
+        return make(self.spec_node())(theta, x1, x2).cpu().numpy()
+
+    def get_gradient(self, x1, x2=None, include_frozen=False, device=None,
+                     dtype=torch.float64):
+        """Hyperparameter gradient tensor, (N1, N2, n_active) (numpy);
+        ``include_frozen`` keeps every parameter."""
+        mask = (np.ones(self.full_size, dtype=bool) if include_frozen
+                else self.unfrozen_mask)
+        return self._gradient(compiler.kernel_gradient_fn, x1, x2, device,
+                              dtype)[:, :, mask]
+
+    def get_x1_gradient(self, x1, x2=None, device=None, dtype=torch.float64):
+        """``d k(x1_i, x2_j) / d x1_i``, (N1, N2, ndim) (numpy)."""
+        return self._gradient(compiler.kernel_x1_gradient_fn, x1, x2,
+                              device, dtype)
+
+    def get_x2_gradient(self, x1, x2=None, device=None, dtype=torch.float64):
+        """``d k(x1_i, x2_j) / d x2_j``, (N1, N2, ndim) (numpy)."""
+        return self._gradient(compiler.kernel_x2_gradient_fn, x1, x2,
+                              device, dtype)
+
+    # -- finite-difference self tests ------------------------------------------
+
+    def test_gradient(self, x1, x2=None, eps=1.32e-6, device=None,
+                      **kwargs):
+        """Assert :meth:`get_gradient` against centred differences of
+        :meth:`get_value` (``kwargs`` go to ``np.allclose``)."""
+        vector = self.get_parameter_vector()
+        g0 = self.get_gradient(x1, x2=x2, device=device)
+        for i, v in enumerate(vector):
+            vector[i] = v + eps
+            self.set_parameter_vector(vector)
+            kp = self.get_value(x1, x2=x2, device=device)
+            vector[i] = v - eps
+            self.set_parameter_vector(vector)
+            km = self.get_value(x1, x2=x2, device=device)
+            vector[i] = v
+            self.set_parameter_vector(vector)
+            fd = 0.5 * (kp - km) / eps
+            assert np.allclose(g0[:, :, i], fd, **kwargs), (
+                "incorrect gradient for parameter '{0}' ({1})".format(
+                    self.get_parameter_names()[i], i))
+
+    def test_x1_gradient(self, x1, x2=None, eps=1.32e-6, device=None,
+                         **kwargs):
+        """Assert :meth:`get_x1_gradient` against centred differences."""
+        kwargs.setdefault("atol", 0.5 * eps)
+        g0 = self.get_x1_gradient(x1, x2=x2, device=device)
+        if x2 is None:
+            x2 = np.array(x1)
+        for i in range(len(x1)):
+            for k in range(self.ndim):
+                x1[i, k] += eps
+                kp = self.get_value(x1, x2=x2, device=device)
+                x1[i, k] -= 2 * eps
+                km = self.get_value(x1, x2=x2, device=device)
+                x1[i, k] += eps
+                fd = 0.5 * (kp - km) / eps
+                assert np.allclose(g0[i, :, k], fd[i], **kwargs)
+
+    def test_x2_gradient(self, x1, x2=None, eps=1.32e-6, device=None,
+                         **kwargs):
+        """Assert :meth:`get_x2_gradient` against centred differences."""
+        kwargs.setdefault("atol", 0.5 * eps)
+        g0 = self.get_x2_gradient(x1, x2=x2, device=device)
+        if x2 is None:
+            x2 = np.array(x1)
+        for i in range(len(x2)):
+            for k in range(self.ndim):
+                x2[i, k] += eps
+                kp = self.get_value(x1, x2=x2, device=device)
+                x2[i, k] -= 2 * eps
+                km = self.get_value(x1, x2=x2, device=device)
+                x2[i, k] += eps
+                fd = 0.5 * (kp - km) / eps
+                assert np.allclose(g0[:, i, k], fd[:, i], **kwargs)
+
     def get_value(self, x1, x2=None, diag=False, device=None,
                   dtype=torch.float64):
         """Evaluate the covariance between sets of points (numpy).

@@ -21,8 +21,8 @@ Two implementations of that one function live here:
     :func:`choose_segments` picks S.  Its ``launches`` attribute counts
     kernel launches, one a call.
   * :func:`kalman_vg_torch` — the plain PyTorch version: the batched filter
-    of :mod:`george_tpu_torch.ops.state_space` with the gradient from
-    ``torch.autograd``.
+    of :mod:`george_tpu_torch.ops.state_space` with the gradient in forward
+    mode, as the kernel carries it (the tangents on the complex step).
 
 :func:`kalman_vg_segmented_torch` models the kernel's split in PyTorch for
 the tests; nothing on the card's path calls it.
@@ -278,26 +278,60 @@ def kalman_vg(spec, theta, dt, y, v, segments=None):
 kalman_vg.launches = 0
 
 
+# The complex step of :func:`_value_and_grad` by working type: far below
+# the type's resolution of the parameters, far above its smallest normal.
+_COMPLEX_STEP = {torch.float32: 1e-10, torch.float64: 1e-20}
+_COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
 def _value_and_grad(spec, theta, y, v, loglike):
     """``loglike(th_kernel, r, var) -> ll (B,)`` at the residuals and the
     variances of the spec's layout, with its gradient with respect to the
-    active parameters by autograd."""
+    active parameters in forward mode, as the kernel carries it.
+
+    The tangents ride on the complex step: the batch is repeated once an
+    active parameter, each copy's parameter takes an imaginary step h, and
+    the filter runs once over the copies in complex arithmetic.  Every
+    operation of the filter is analytic, so a copy's Im(ll) / h is the
+    derivative along its parameter (no difference is taken, so nothing
+    cancels; the error is O(h^2)): the arithmetic of the kernel's dual
+    numbers (``Dual<T, NA>``), in the working type's precision.  In float64
+    the value is the real part of one more, unperturbed copy; in float32
+    it comes from the filter in real arithmetic, whose rounding the float32
+    kernel is held to (complex products round differently).
+    """
+    B, na = theta.shape[0], len(spec.active)
     n_scalar = spec.n_mean + spec.n_wn
-    with torch.enable_grad():
-        th = theta.detach().clone().requires_grad_(True)
+
+    def run(th):
         r = y - th[:, :1] if spec.n_mean else y
         var = v + torch.exp(th[:, spec.n_mean:spec.n_mean + 1]) \
             if spec.n_wn else v
-        ll = loglike(th[:, n_scalar:], r, var)
-        if spec.active:
-            g = torch.autograd.grad(ll.sum(), th)[0][:, list(spec.active)]
-        else:
-            g = th.new_zeros(th.shape[0], 0)
-    return ll.detach(), g
+        with torch.no_grad():
+            return loglike(th[:, n_scalar:], r, var)
+
+    theta = theta.detach()
+    real_value = theta.dtype != torch.float64
+    if real_value or not na:
+        ll = run(theta)
+        if not na:
+            return ll, theta.new_zeros(B, 0)
+    step = _COMPLEX_STEP[theta.dtype]
+    first = 0 if real_value else 1
+    th = theta.repeat(na + first, 1).to(_COMPLEX[theta.dtype])
+    for i, a in enumerate(spec.active):
+        th[(i + first) * B:(i + first + 1) * B, a] += 1j * step
+    out = run(th)
+    if not real_value:
+        ll = out.real[:B].contiguous()
+    grad = (out.imag[first * B:] / step).reshape(na, B).t()
+    return ll, grad.contiguous()
 
 
 def kalman_vg_torch(spec, theta, dt, y, v):
-    """The plain PyTorch version of :func:`kalman_vg` (any device)."""
+    """The plain PyTorch version of :func:`kalman_vg` (any device): the
+    sequential filter of :mod:`george_tpu_torch.ops.state_space`, its
+    gradient carried forward beside it (:func:`_value_and_grad`)."""
     _check_inputs(spec, theta, dt, y, v)
     return _value_and_grad(spec, theta, y, v, lambda th, r, var:
                            kalman_loglike(spec.terms, th, dt, r, var))
@@ -403,7 +437,8 @@ def kalman_vg_segmented_torch(spec, theta, dt, y, v, segments):
     Stage 2: each segment carries segment 0's end state through the
     elements before its own, in order.  Stage 3: each segment re-filters its
     observations from that state, and the segments' sums of prediction-error
-    terms add up in segment order.  The gradient is by autograd.
+    terms add up in segment order.  The gradient is in forward mode, as
+    :func:`kalman_vg_torch`'s.
     """
     _check_inputs(spec, theta, dt, y, v)
     if segments < 1:

@@ -126,7 +126,9 @@ def grad_core_fn(node):
             L, logdet = cholesky_factor(K)
             alpha = cho_solve(L, r)
             ll = -0.5 * (logdet + torch.dot(r, alpha))
-            g_theta, g_wn = torch.autograd.grad(ll, (theta, wn_vec))
+            # An empty kernel's parameters do not enter: zeros.
+            g_theta, g_wn = torch.autograd.grad(ll, (theta, wn_vec),
+                                                materialize_grads=True)
         return g_theta, g_wn, alpha.detach()
 
     return core

@@ -32,6 +32,7 @@ runs the same recurrence with the whole state of a chain in registers.
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
@@ -41,6 +42,11 @@ from ..dsl.compiler import Leaf, node_size
 __all__ = [
     "StateSpaceUnsupported", "Term", "extract_terms", "supports_state_space",
     "FAMILY_CODES", "kalman_loglike", "kalman_loglike_parallel",
+    "kalman_filter", "rts_smoother_means", "sample_sequential",
+    "filter_covariances", "affine_scan", "filter_means", "smoother_means",
+    "sample_scan", "system_fn", "state_space_factor_fn",
+    "state_space_apply_inverse_fn", "state_space_apply_sqrt_fn",
+    "state_space_grad_core_fn", "state_space_loglike_fn", "COLUMN_CHUNK",
 ]
 
 
@@ -534,3 +540,342 @@ def kalman_loglike_parallel(terms, th_kernel, dt, r, v):
     innov = r - m_pred @ fm.h
     return torch.sum(-0.5 * (torch.log(2.0 * math.pi * S) + innov * innov / S),
                      dim=0)
+
+
+# -- one GP's solver: covariances once, columns of data by affine scans -------
+#
+# The JAX package's solver functions run the filter and the smoother as
+# loops of N steps, once a column of data.  On the card a loop of N steps
+# is ~20 small launches a step.  Here the quantities that do not depend on
+# the data (innovation variances S_k, gains K_k, filtered and predicted
+# covariances, smoother gains G_k) come once a (theta, t, v) from the
+# associative-scan filter at zero data, at O(log N) depth, and every
+# column-dependent quantity is an affine recurrence m_k = A_k m_{k-1} + b_k,
+# batched over the columns and run as an associative scan of (D x D, D)
+# maps:
+#
+#   * filtered means:  m_k = (I - K_k h^T) Phi_k m_{k-1} + K_k y_k;
+#   * smoothed means, backward:  m^s_k = G_k m^s_{k+1} + (m^f_k - G_k m^p_{k+1});
+#   * draws:  m_k = Phi_k m_{k-1} + K_k sqrt(S_k) z_k, y_k = h^T Phi_k m_{k-1}
+#     + sqrt(S_k) z_k.
+#
+# :func:`kalman_filter`, :func:`rts_smoother_means` and
+# :func:`sample_sequential` follow the JAX package's loops step by step; they
+# are the tests' plain models, and nothing on the card's path calls them.
+
+# Columns of data a scan takes at once.  A scan's intermediates are a few
+# (N, D, columns) tensors: at N = 100,000, D = 3 and 256 columns each is
+# ~0.6 GB in float64.
+COLUMN_CHUNK = 256
+
+
+def _system(terms, th_kernel, dt):
+    """``(Phi (N-1, D, D), Q (N-1, D, D), Pinf (D, D), h (D,))`` of one
+    kernel parameter vector ``th_kernel`` (P,) over the gaps ``dt``."""
+    fm = _FilterMachine(terms, th_kernel[None])
+    Phi, Q, Pinf = fm.systems(fm.sig_rates(th_kernel[None]), dt)
+    return Phi[:, 0], Q[:, 0], Pinf[0], fm.h
+
+
+def system_fn(node):
+    """``build(th_kernel, t) -> (Phi, Q, Pinf, h)`` for a kernel tree and
+    sorted 1-D inputs ``t``."""
+    terms = extract_terms(node)
+
+    def build(th_kernel, t):
+        return _system(terms, th_kernel, torch.diff(t))
+
+    return build
+
+
+def _with_prior_step(Phi):
+    """``Phi_all`` (N, D, D): an identity transition before step 0."""
+    eye = torch.eye(Phi.shape[-1], dtype=Phi.dtype, device=Phi.device)
+    return torch.cat([eye[None], Phi], dim=0)
+
+
+def _h_dot(h, m):
+    """``h^T m_k`` for means ``m`` (N, D, C): (N, C)."""
+    return torch.einsum("d,ndc->nc", h, m)
+
+
+def kalman_filter(Phi, Q, Pinf, h, y, v):
+    """The sequential Kalman filter (a plain model: the JAX package's loop,
+    step by step, Joseph-form update).
+
+    ``y`` is (N,) or (N, C), columns that share the covariances.  Returns
+    ``(S (N,), innov, m_f, P_f (N, D, D), m_p, P_p)``: the innovation
+    variances and values, and the filtered and predicted moments of every
+    step; ``innov`` is (N[, C]), the means (N, D[, C]).
+    """
+    single = y.dim() == 1
+    Y = y[:, None] if single else y
+    D = Pinf.shape[0]
+    eye = torch.eye(D, dtype=Y.dtype, device=Y.device)
+    Phi_all = _with_prior_step(Phi)
+    Q_all = torch.cat([torch.zeros_like(Pinf)[None], Q], dim=0)
+    m, P = Y.new_zeros(D, Y.shape[1]), Pinf
+    steps = []
+    for k in range(Y.shape[0]):
+        m_ = Phi_all[k] @ m
+        P_ = Phi_all[k] @ P @ Phi_all[k].T + Q_all[k]
+        Ph = P_ @ h
+        S = h @ Ph + v[k]
+        innov = Y[k] - h @ m_
+        K = Ph / S
+        m = m_ + K[:, None] * innov[None]
+        ikh = eye - torch.outer(K, h)
+        P = ikh @ P_ @ ikh.T + v[k] * torch.outer(K, K)
+        steps.append((S, innov, m, P, m_, P_))
+    S, innov, m_f, P_f, m_p, P_p = (torch.stack(z) for z in zip(*steps))
+    if single:
+        innov, m_f, m_p = innov[:, 0], m_f[..., 0], m_p[..., 0]
+    return S, innov, m_f, P_f, m_p, P_p
+
+
+def rts_smoother_means(Phi, Q, Pinf, h, y, v):
+    """Smoothed state means E[x_k | y] by the sequential Rauch-Tung-Striebel
+    pass (a plain model): (N, D) for ``y`` (N,), (N, D, C) for (N, C)."""
+    _, _, m_f, P_f, m_p, P_p = kalman_filter(Phi, Q, Pinf, h, y, v)
+    m_s = [m_f[-1]]
+    for k in range(m_f.shape[0] - 2, -1, -1):
+        G = P_f[k] @ Phi[k].T @ _small_inv(P_p[k + 1])
+        m_s.append(m_f[k] + G @ (m_s[-1] - m_p[k + 1]))
+    return torch.stack(m_s[::-1])
+
+
+def sample_sequential(Phi, Q, Pinf, h, Z, v):
+    """Draws with covariance K + diag(v) from iid normals ``Z`` (N,) or
+    (C, N) by the innovations square root, the JAX package's loop step by
+    step (a plain model): ``y_k = h^T m^-_k + sqrt(S_k) z_k``, the filter
+    updated on the drawn value."""
+    single = Z.dim() == 1
+    Zc = (Z[None] if single else Z).T
+    D = Pinf.shape[0]
+    eye = torch.eye(D, dtype=Zc.dtype, device=Zc.device)
+    Phi_all = _with_prior_step(Phi)
+    Q_all = torch.cat([torch.zeros_like(Pinf)[None], Q], dim=0)
+    m, P = Zc.new_zeros(D, Zc.shape[1]), Pinf
+    ys = []
+    for k in range(Zc.shape[0]):
+        m_ = Phi_all[k] @ m
+        P_ = Phi_all[k] @ P @ Phi_all[k].T + Q_all[k]
+        Ph = P_ @ h
+        S = h @ Ph + v[k]
+        y_k = h @ m_ + torch.sqrt(S) * Zc[k]
+        K = Ph / S
+        m = m_ + K[:, None] * (y_k - h @ m_)[None]
+        ikh = eye - torch.outer(K, h)
+        P = ikh @ P_ @ ikh.T + v[k] * torch.outer(K, K)
+        ys.append(y_k)
+    out = torch.stack(ys).T
+    return out[0] if single else out
+
+
+def filter_covariances(Phi, Q, Pinf, h, v):
+    """The data-free part of the filter by the associative-scan filter at
+    zero data (O(log N) depth): ``(S (N,), K (N, D), P_f (N, D, D), P_p (N,
+    D, D))``, the innovation variances, gains, and filtered and predicted
+    covariances."""
+    # The fields of _FilterMachine that filter_elements reads.
+    gains = SimpleNamespace(h=h, eye=torch.eye(h.shape[0], dtype=h.dtype,
+                                               device=h.device))
+    zero = v.new_zeros(v.shape[0], 1)
+    _, _, P_f, _, _ = associative_scan(combine, filter_elements(
+        gains, Phi[:, None], Q[:, None], Pinf[None], zero, v[:, None]))
+    P_f = P_f[:, 0]
+    P_p = torch.cat([Pinf[None], Phi @ P_f[:-1] @ Phi.transpose(-1, -2) + Q],
+                    dim=0)
+    Ph = P_p @ h
+    S = Ph @ h + v
+    return S, Ph / S[:, None], P_f, P_p
+
+
+def _affine_combine(ei, ej):
+    Ai, bi = ei
+    Aj, bj = ej
+    return Aj @ Ai, Aj @ bi + bj
+
+
+def affine_scan(A, b):
+    """``m_k = A_k m_{k-1} + b_k`` for k = 0..N-1 from m_{-1} = 0, by an
+    associative scan of the affine maps (O(log N) depth).  ``A`` (N, D, D)
+    is shared by the columns of ``b`` (N, D, C); returns m (N, D, C)."""
+    return associative_scan(_affine_combine, (A, b))[1]
+
+
+def filter_means(Phi, h, K, Y):
+    """Filtered and predicted means and the innovations of columns ``Y``
+    (N, C), given the gains ``K``: ``(m_f (N, D, C), m_p (N, D, C), innov
+    (N, C))``."""
+    Phi_all = _with_prior_step(Phi)
+    eye = Phi_all[0]
+    m_f = affine_scan((eye - K[:, :, None] * h) @ Phi_all,
+                      K[:, :, None] * Y[:, None, :])
+    m_p = Phi_all @ torch.cat([torch.zeros_like(m_f[:1]), m_f[:-1]], dim=0)
+    return m_f, m_p, Y - _h_dot(h, m_p)
+
+
+def smoother_gains(Phi, P_f, P_p):
+    """``G_k = P_f,k Phi_k^T P_p,k+1^-1`` for k < N - 1: (N-1, D, D)."""
+    return P_f[:-1] @ Phi.transpose(-1, -2) @ _small_inv(P_p[1:])
+
+
+def smoother_means(G, m_f, m_p):
+    """Smoothed means (N, D, C): ``m^s_k = G_k m^s_{k+1} + (m^f_k - G_k
+    m^p_{k+1})`` from m^s_{N-1} = m^f_{N-1}, an affine scan over the
+    reversed steps."""
+    D = m_f.shape[1]
+    A = torch.cat([m_f.new_zeros(1, D, D), G.flip(0)], dim=0)
+    b = torch.cat([m_f[-1:], (m_f[:-1] - G @ m_p[1:]).flip(0)], dim=0)
+    return affine_scan(A, b).flip(0)
+
+
+def sample_scan(Phi, h, S, K, Zc):
+    """Draws (N, C) with covariance K + diag(v) from iid normals ``Zc``
+    (N, C) by the innovations square root, as an affine scan."""
+    Phi_all = _with_prior_step(Phi)
+    e = torch.sqrt(S)[:, None] * Zc
+    m = affine_scan(Phi_all, K[:, :, None] * e[:, None, :])
+    m_prev = torch.cat([torch.zeros_like(m[:1]), m[:-1]], dim=0)
+    return _h_dot(h, Phi_all @ m_prev) + e
+
+
+def _by_columns(fn, Y, chunk):
+    """``fn`` over the columns of ``Y`` (N,) or (N, C), ``chunk`` at a
+    time."""
+    single = Y.dim() == 1
+    Yc = Y[:, None] if single else Y
+    parts = [fn(Yc[:, i:i + chunk]) for i in range(0, Yc.shape[1], chunk)]
+    out = torch.cat(parts, dim=1) if parts else fn(Yc)
+    return out[:, 0] if single else out
+
+
+class StateSpaceFactor:
+    """One GP's filter quantities that do not depend on the data, computed
+    once a (theta, t, v) by :func:`filter_covariances`: the solver's
+    "factorization".  Columns of data then take affine scans only,
+    :data:`COLUMN_CHUNK` columns at a time."""
+
+    def __init__(self, terms, th_kernel, dt, v, chunk=COLUMN_CHUNK):
+        self.Phi, _, _, self.h = sys = _system(terms, th_kernel, dt)
+        self.v = v
+        self.S, self.K, P_f, P_p = filter_covariances(*sys, v)
+        self.G = smoother_gains(self.Phi, P_f, P_p)
+        self.chunk = chunk
+
+    @property
+    def log_determinant(self):
+        """log det(K + diag(v)) = sum log S_k."""
+        return torch.sum(torch.log(self.S))
+
+    def dot_solve(self, Y):
+        """``y^T (K + diag(v))^-1 y`` = sum innov^2 / S, per column."""
+        def cols(Yc):
+            innov = filter_means(self.Phi, self.h, self.K, Yc)[2]
+            return torch.sum(innov * innov / self.S[:, None], dim=0)[None]
+        return _by_columns(cols, Y, self.chunk)[0]
+
+    def apply_inverse(self, Y):
+        """``(K + diag(v))^-1 Y`` by the regression identity ``(y - h^T
+        m^s) / v`` (requires v > 0)."""
+        def cols(Yc):
+            m_f, m_p, _ = filter_means(self.Phi, self.h, self.K, Yc)
+            m_s = smoother_means(self.G, m_f, m_p)
+            return (Yc - _h_dot(self.h, m_s)) / self.v[:, None]
+        return _by_columns(cols, Y, self.chunk)
+
+    def apply_sqrt(self, Z):
+        """Draws with covariance K + diag(v) from iid normals ``Z`` (N,) or
+        (C, N), in the same layout."""
+        if Z.dim() == 1:
+            return self.apply_sqrt(Z[None])[0]
+        return _by_columns(lambda Zc: sample_scan(self.Phi, self.h, self.S,
+                                                  self.K, Zc),
+                           Z.T, self.chunk).T
+
+
+def state_space_factor_fn(node):
+    """``factor(th_kernel, t, v) -> (logdet, (Phi, Q, Pinf, h))``: the
+    log-determinant of K + diag(v) from the innovation variances."""
+    build = system_fn(node)
+
+    def factor(th_kernel, t, v):
+        sys = build(th_kernel, t)
+        return torch.sum(torch.log(filter_covariances(*sys, v)[0])), sys
+
+    return factor
+
+
+def state_space_apply_inverse_fn(node):
+    """``apply_inv(th_kernel, t, v, Y) -> (K + diag(v))^-1 Y`` for ``Y``
+    (N,) or (N, C), through the smoother (requires v > 0)."""
+    terms = extract_terms(node)
+
+    def apply_inv(th_kernel, t, v, Y):
+        return StateSpaceFactor(terms, th_kernel, torch.diff(t),
+                                v).apply_inverse(Y)
+
+    return apply_inv
+
+
+def state_space_apply_sqrt_fn(node):
+    """``apply_sqrt(th_kernel, t, v, Z) -> draws`` with covariance
+    K + diag(v) from iid normals ``Z`` (N,) or (C, N): the innovations
+    representation K + diag(v) = L S L^T (L unit lower triangular in time
+    order) is the Cholesky factorization the filter computes implicitly."""
+    terms = extract_terms(node)
+
+    def apply_sqrt(th_kernel, t, v, Z):
+        return StateSpaceFactor(terms, th_kernel, torch.diff(t),
+                                v).apply_sqrt(Z)
+
+    return apply_sqrt
+
+
+def state_space_grad_core_fn(node):
+    """``core(theta, wn_vec, t, r, yerr2) -> (g_theta, g_wn_vec, alpha)``,
+    everything in sorted order: the gradient of the log-likelihood with
+    respect to the kernel parameters and the per-point log white noise by
+    autograd through the associative-scan filter, and ``alpha = K^-1 r``
+    from the smoother.  (The GP takes the Kalman kernel instead where the
+    white noise is one scalar: ``GP.grad_log_likelihood``.)"""
+    terms = extract_terms(node)
+
+    def core(theta, wn_vec, t, r, yerr2):
+        dt = torch.diff(t)
+        with torch.enable_grad():
+            th = theta.detach().clone().requires_grad_(True)
+            wn = wn_vec.detach().clone().requires_grad_(True)
+            ll = kalman_loglike_parallel(terms, th[None], dt, r,
+                                         yerr2 + torch.exp(wn))[0]
+            g_theta, g_wn = torch.autograd.grad(ll, (th, wn))
+        with torch.no_grad():
+            alpha = StateSpaceFactor(terms, theta, dt, yerr2 + torch.exp(
+                wn_vec)).apply_inverse(r)
+        return g_theta, g_wn, alpha
+
+    return core
+
+
+def state_space_loglike_fn(node, method="parallel"):
+    """``ll(th_kernel, t, r, v) -> scalar`` for a kernel tree, ``t`` sorted,
+    ``r`` the residuals, ``v`` the observation variances.
+
+    ``method``: ``"parallel"`` the associative-scan filter;
+    ``"sequential"`` (or ``"sequential_stacked"``) the batch-first
+    sequential filter.  An empty tree gives the diagonal likelihood.
+    """
+    if method not in ("parallel", "sequential", "sequential_stacked"):
+        raise ValueError("unknown method '{0}'".format(method))
+    if _tree_terms(node) == (None, []):
+        def ll_empty(th_kernel, t, r, v):
+            return torch.sum(-0.5 * (torch.log(2.0 * math.pi * v) + r * r / v))
+        return ll_empty
+    terms = extract_terms(node)
+    fn = kalman_loglike_parallel if method == "parallel" else kalman_loglike
+
+    def ll(th_kernel, t, r, v):
+        return fn(terms, th_kernel[None], torch.diff(t), r, v)[0]
+
+    return ll

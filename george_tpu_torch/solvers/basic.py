@@ -6,28 +6,64 @@ log_determinant / computed) is george's BasicSolver.  The covariance build
 runs through the torch kernel evaluators (on the card, large stationary
 builds through the tiled kernel of ``ops/cov.py``); the factorization is
 ``torch.linalg.cholesky_ex`` (cuSOLVER on the card), which the JAX package
-likewise leaves to its compiler.  Arrays come in and go out as numpy;
-:attr:`factor` is the lower factor as a tensor on the solver's device.
+likewise leaves to its compiler.  Arrays come in and go out as numpy,
+tensors as tensors on the solver's device; :attr:`factor` is the lower
+factor as a tensor there.  A pickled solver carries its factor as a host
+array and puts it back on its device when loaded.
 """
 
 import numpy as np
 import torch
 from scipy.linalg import LinAlgError
 
+from .._device import resolve_device
 from ..ops import linalg
 
-__all__ = ["BasicSolver"]
+__all__ = ["BasicSolver", "dense_grad_core", "project_white_noise"]
+
+
+def project_white_noise(gp, g_wn):
+    """The gradient of the GP's active white-noise parameters from the
+    per-point gradient ``g_wn`` of the log white-noise variance."""
+    if not len(gp.white_noise):
+        return np.zeros(0)
+    wn_grad = np.atleast_2d(
+        gp.white_noise.get_gradient(gp._model_input(gp._x)))
+    return wn_grad @ g_wn
+
+
+def dense_grad_core(gp, r):
+    """``(g_theta, g_wn, alpha)`` for the residual ``r``: one autograd pass
+    through the Cholesky (``ops/linalg.grad_core_fn``), the white-noise
+    gradient projected onto its model's active parameters."""
+    core = linalg.grad_core_fn(gp.kernel.spec_node())
+    g_theta, g_wn, alpha = (gp._host(v) for v in core(
+        gp._tensor(gp.kernel.get_parameter_vector(include_frozen=True)),
+        gp._tensor(gp._call_white_noise(gp._x)),
+        gp._tensor(gp._x), gp._tensor(r), gp._tensor(gp._yerr2)))
+    return g_theta, project_white_noise(gp, g_wn), alpha
 
 
 class BasicSolver(object):
 
-    def __init__(self, kernel, device, dtype=torch.float64):
+    def __init__(self, kernel, device=None, dtype=torch.float64):
         self.kernel = kernel
-        self.device = device
+        self.device = resolve_device(device)
         self.dtype = dtype
         self._computed = False
         self._log_det = None
         self._factor = None
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        if self._factor is not None:
+            state["_factor"] = self._factor.cpu().numpy()
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        if self._factor is not None:
+            self._factor = torch.as_tensor(self._factor, device=self.device)
 
     @property
     def computed(self):
@@ -74,7 +110,10 @@ class BasicSolver(object):
     def apply_inverse(self, y, in_place=False):
         """Solve K x = y for a vector (N,) or a matrix (N, K); with
         ``in_place`` a numpy ``y`` of the result's shape is overwritten and
-        returned."""
+        returned.  A tensor ``y`` gives a tensor on the solver's device."""
+        if torch.is_tensor(y):
+            return linalg.solve_fn(self._factor,
+                                   y.to(self.device, self.dtype))
         out = linalg.solve_fn(self._factor, self._tensor(y)).cpu().numpy()
         if in_place and isinstance(y, np.ndarray) and y.shape == out.shape:
             y[...] = out
@@ -91,6 +130,11 @@ class BasicSolver(object):
         covariance K)."""
         return linalg.apply_sqrt_fn(self._factor, self._tensor(r)) \
             .cpu().numpy().astype(np.float64)
+
+    def grad_core(self, gp, r):
+        """The GP's kernel and white-noise gradient and ``K^-1 r``; see
+        :func:`dense_grad_core`."""
+        return dense_grad_core(gp, r)
 
     def get_inverse(self):
         """The dense K^-1 (gradients and diagnostics only)."""

@@ -3,14 +3,17 @@
 
 API-compatible with george's ``utils.py`` (the JAX package's), except that
 the draws come from an explicit ``torch.Generator`` (default: a freshly
-seeded one) instead of the global ``np.random``.  The native point
-orderings (``nd_sort_samples`` and the rest) are not ported yet.
+seeded one) instead of the global ``np.random``.  The point orderings run
+in the package's native C++ library (``native/src/ordering.cpp``).
 """
 
 import numpy as np
 import torch
 
+from . import native
+
 __all__ = ["multivariate_gaussian_samples", "standard_normal",
+           "nd_sort_samples", "kd_sort_samples", "hilbert_sort_samples",
            "numerical_gradient", "check_gradient"]
 
 
@@ -39,6 +42,27 @@ def multivariate_gaussian_samples(matrix, N, mean=None, generator=None):
     root = V * np.sqrt(np.clip(w, 0.0, None))
     samples = mean + standard_normal((N, n), generator) @ root.T
     return samples[0] if N == 1 else samples
+
+
+def nd_sort_samples(samples):
+    """Order N-d samples by distance from the first sample (george's k-d
+    tree query of every point, a sort by distance)."""
+    assert len(samples.shape) == 2
+    return native.distance_order(samples)
+
+
+def kd_sort_samples(samples):
+    """Recursive median-split ordering on the widest-spread axis: every
+    halving separates two spatial clusters (the ordering a hierarchical
+    solver wants)."""
+    assert len(samples.shape) == 2
+    return native.kd_order(samples)
+
+
+def hilbert_sort_samples(samples, bits=16):
+    """Hilbert space-filling-curve ordering of N-d samples."""
+    assert len(samples.shape) == 2
+    return native.hilbert_order(samples, bits=bits)
 
 
 def numerical_gradient(f, x, dx=1.234e-6):

@@ -101,11 +101,14 @@ def test_vg_matches_jax_scan_path(name):
     # make_kalman_vg itself: every parameter of the full vector [mean |
     # white noise | kernel] is active and unbounded here, so its (ll, grad)
     # is the reference log_prob's value and gradient.
+    # Its plain version carries the gradient in forward mode, as the
+    # kernel does: the JAX package's value and gradient at rtol 1e-10.
     vg = kalman.make_kalman_vg(gt.kernel.spec_node(), x, y, yerr ** 2, 1, 1,
                                tuple(range(thetas.shape[1])))
     ll, g = vg(torch.as_tensor(thetas))
-    np.testing.assert_allclose(ll.numpy(), ref_lp, rtol=1e-9)
-    np.testing.assert_allclose(g.numpy(), ref_g, rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(ll.numpy(), ref_lp, rtol=1e-10)
+    np.testing.assert_allclose(g.numpy(), ref_g, rtol=1e-10,
+                               atol=1e-10 * np.abs(ref_g).max())
 
 
 def test_bounds_and_prior():

@@ -4,8 +4,8 @@
 
     python3 chip_smoke.py
 
-Five paths, each through the entry points a user calls, each over
-hand-written CUDA kernels:
+The paths, each through the entry points a user calls, each over
+hand-written CUDA kernels but HODLR's:
 
 * the main path: the hyperparameter posterior of ``1.0 *
   Matern32Kernel(1.0)`` with a fitted log white noise over N = 1000 sorted
@@ -40,7 +40,15 @@ hand-written CUDA kernels:
   model and data, ``GP(kernel, solver=StateSpaceSolver)``, float64) at
   N = 20000 and 100,000, every ``grad_log_likelihood`` one launch of the
   Kalman kernel at B = 1, and ``optimize.minimize`` (batched restarts,
-  every evaluation one launch at B = 1 + restarts).
+  every evaluation one launch at B = 1 + restarts);
+* the HODLR solver and its sampler engine (``benchmarks/hodlr_sampler.py``'s
+  model, ``BASELINE.json`` config 4: ``GP(kernel, solver=HODLRSolver)`` at
+  N = 10^4 and a Matern32 GP at 10^5, ``build_gp_log_prob(method=
+  "hodlr")`` under NUTS at N = 2048), plain PyTorch with no hand kernel;
+* SMC at config 3 (``benchmarks/smc_period.py``: the ExpSine2 x
+  ExpSquared GP, 4096 particles), every target evaluation one launch of the
+  dense value+gradient kernel, and ADVI on the main path, every step one
+  launch of the Kalman kernel.
 
 Phases (any failure exits non-zero):
 
@@ -143,7 +151,7 @@ Phases (any failure exits non-zero):
     ``trajectory_health`` against it; the wall split into warmup and
     sampling, the loop iterations, the kernel's share of the wall, the host
     ms an iteration and the useful-leapfrog share;
-21. per-draw NUTS (``persistent=False``, 100 draws) against phase 20: the
+21. per-draw NUTS (``persistent=False``, 50 draws) against phase 20: the
     means, the leapfrogs per draw, each mode's wall a draw;
 22. HMC on the main path (4096 chains, 8 leapfrogs, 100 + 100) against
     phase 4's means and its warmup acceptance against the 0.8 target, and
@@ -161,7 +169,31 @@ Phases (any failure exits non-zero):
     on the main path's model (63 restarts) and on the N = 20000 GP (15
     restarts), launches equal to evaluations, each optimum within 1e-6
     relative of ``scipy.optimize.minimize(method="L-BFGS-B")`` over
-    ``nll`` / ``grad_nll`` from the best start.
+    ``nll`` / ``grad_nll`` from the best start;
+24. the HODLR GP API in float64: config 4 at N = 10^4 at tol 1e-10
+    against the dense ``BasicSolver`` (log-likelihood and gradient,
+    ``np.allclose`` as the JAX package's tests/test_solvers.py asserts),
+    and at the default tol 0.1 ``compute`` / ``log_likelihood`` /
+    ``grad_log_likelihood`` / ``apply_inverse``, each timed (CUDA events)
+    with its kernel launches and device time (``torch.profiler``); a
+    Matern32 GP at N = 100,000 (9 levels, leaves of 196) at tol 1e-10
+    against the exact ``StateSpaceSolver``, its calls timed the same way;
+25. the HODLR sampler route at N = 2048 (config 4's match leg): the
+    match leg's own density (tol 1e-4, pinned at the generating
+    parameters) and the one sampled (tol 1e-8, pinned at the MAP) against
+    the dense density around the MAP; NUTS (max depth 4) on both routes
+    (64 chains on HODLR, the first 8 of their starts on the dense route),
+    divergences, split R-hat and ``posteriors_agree``;
+    one batched value+gradient at N = 2048 and at N = 10^4 (32 chains),
+    timed, with its launches and the card's share of it;
+26. SMC at config 3, HMC and random-walk mutations: ``dense_vg.cu``'s
+    launches equal to the target's evaluations, the period posterior's
+    median within 0.15 of the true period 2.3 (the benchmark's gate), and
+    particle-mutations a second;
+27. ADVI on the main path (mean-field, 1000 steps): one ``kalman_vg.cu``
+    launch a step, the fitted mean within one posterior sd of phase 4's
+    ChEES mean, the ELBO rising; a NUTS state checkpointed, restored on the
+    card bit for bit, and the next transition from it the same bits.
 
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
@@ -299,10 +331,12 @@ TPU_FIDELITY = {
 }
 # Phases 20-22: the main path's NUTS leg (bench.py's: max depth 4,
 # trajectory-persistent, 16384 chains, blocks of 300 draws; 300 draws, not
-# 1200), per-draw NUTS beside it, HMC, and NUTS on the dense path.
+# 3600: at 150 the split R-hat gate reads ~1.016), per-draw NUTS beside it
+# (50 draws, for the script's time since phases 24-27), HMC, and NUTS on
+# the dense path.
 NUTS_DEPTH = 4
 NUTS_SAMPLES = 300
-PER_DRAW_SAMPLES = 100
+PER_DRAW_SAMPLES = 50
 HMC_CHAINS = 4096
 HMC_WARMUP = 100
 HMC_SAMPLES = 100
@@ -337,6 +371,40 @@ SS_PREDICT = 1000
 SS_TIMING_REPS = 20
 FIT_RESTARTS_MAIN = 63
 FIT_RESTARTS_SS = 15
+# Phases 24-25: BASELINE.json config 4 (benchmarks/hodlr_sampler.py's
+# model and data) through the HODLR solver and its sampler engine: the GP
+# API at N = 10^4 (and a Matern32 GP at 10^5 against the exact O(N)
+# solver); the benchmark's match leg (N = 2048, NUTS at max depth 4) on the
+# HODLR and the dense route, and one batched value+gradient at N = 10^4
+# over 32 chains.  The match leg's own density (MATCH_OPTS, pinned at the
+# generating parameters) is off the dense one by up to ~10 nats at this
+# posterior, whose mode lies ~3 units of log M away: it is printed, and
+# the sampled density is pinned at the MAP with HODLR_OPTS instead (at tol
+# 1e-6 a near-zero replayed pivot put 2.4% of the draws in divergences).
+# The draws are cut, and the dense route's chains, to fit the script's
+# time: a HODLR value+gradient at N = 2048 is host-bound at ~50 ms
+# whatever the chain count up to the benchmark's 64, the dense one
+# device-bound at ~3.4-5 ms a chain (~180 ms at 64).
+HODLR_N = 10_000
+HODLR_LONG_N = 100_000
+HODLR_SAMPLER_N = 2048
+HODLR_CHAINS = 64
+HODLR_DENSE_CHAINS = 8
+HODLR_BIG_CHAINS = 32
+HODLR_WARMUP = 60
+HODLR_SAMPLES = 100
+MATCH_OPTS = {"tol": 1e-4, "min_size": 256}
+HODLR_OPTS = {"tol": 1e-8, "min_size": 256}
+# Phase 26: BASELINE.json config 3 (benchmarks/smc_period.py): N = 120,
+# 4096 particles, 8 mutations a stage; its gate: the period posterior's
+# median within 0.15 of the true period.
+SMC_N = 120
+SMC_PARTICLES = 4096
+SMC_MUTATIONS = 8
+SMC_TRUE_PERIOD = 2.3
+# Phase 27: ADVI on the main path (mean-field, 8 draws a step).
+ADVI_STEPS = 1000
+ADVI_MC = 8
 
 
 def log(*args):
@@ -2746,6 +2814,411 @@ def run_state_space_gp(phase, dev, card):
     return entries
 
 
+# -- phases 24-27: HODLR, SMC, ADVI and a checkpoint ---------------------------
+
+def hodlr_data(n, seed=42):
+    """``benchmarks/hodlr_sampler.py``'s ``make_posterior`` data."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0, 100, n))
+    yerr = 0.1 * np.ones(n)
+    y = np.sin(x / 4.0) + yerr * rng.standard_normal(n)
+    return x, y, yerr
+
+
+def hodlr_gp(device, **kw):
+    """Its model: ``1.0 * ExpSquaredKernel(4.0)``, fitted log white noise."""
+    import george_tpu_torch as george
+    from george_tpu_torch import kernels
+
+    return george.GP(1.0 * kernels.ExpSquaredKernel(4.0),
+                     white_noise=np.log(1e-3), fit_white_noise=True,
+                     device=device, **kw)
+
+
+def smc_posterior(device):
+    """``benchmarks/smc_period.py``'s model and data (config 3): the
+    ExpSine2 x ExpSquared GP, fitted log white noise, N = 120."""
+    import george_tpu_torch as george
+    from george_tpu_torch import kernels
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    rng = np.random.default_rng(8)
+    x = np.sort(rng.uniform(0, 18, SMC_N))
+    yerr = 0.15 * np.ones(SMC_N)
+    y = np.sin(2 * np.pi * x / SMC_TRUE_PERIOD) \
+        + yerr * rng.standard_normal(SMC_N)
+    kernel = 1.0 * kernels.ExpSine2Kernel(
+        gamma=3.0, log_period=np.log(2.0)) * kernels.ExpSquaredKernel(100.0)
+    gp = george.GP(kernel, white_noise=np.log(1e-4), fit_white_noise=True,
+                   device=device)
+    lp, theta0 = build_gp_log_prob(gp, x, y, yerr, device=device)
+    return gp, lp, theta0
+
+
+def profiled(fn):
+    """``(kernel launches, device ms)`` of one call of ``fn`` as
+    torch.profiler records it (every CUDA kernel; the device time of
+    kernels, copies and fills); ``(None, None)`` if it records no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, None
+    kernels = [e for e in events
+               if not e.name.startswith(("Memcpy", "Memset", "memcpy",
+                                         "memset"))]
+    return len(kernels), sum(e.time_range.elapsed_us()
+                             for e in events) / 1e3
+
+
+def timed_call(fn, what, card):
+    """One call of ``fn`` between CUDA events after a warm call, then one
+    under the profiler: prints ms, launches and the device's share;
+    returns ``(ms, launches, device ms)``."""
+    fn()
+    _, ms = cuda_ms(fn)
+    launches, dev_ms = profiled(fn)
+    if launches is None:
+        log("  {0}: {1:.3f} ms (CUDA events); launches and device time not "
+            "measured (the profiler recorded no device event); on {2}".format(
+                what, ms, card))
+    else:
+        log("  {0}: {1:.3f} ms (CUDA events); {2} kernel launches, {3:.3f} "
+            "ms of device time: the card busy {4:.1%} of the call, the host "
+            "the rest; on {5}".format(what, ms, launches, dev_ms,
+                                      min(1.0, dev_ms / ms), card))
+    return ms, launches, dev_ms
+
+
+def hodlr_gp_calls(gp, x, y, yerr, what, card):
+    """``compute`` / ``log_likelihood`` / ``grad_log_likelihood`` /
+    ``apply_inverse`` of a HODLR GP, each timed and profiled."""
+    out = {}
+    for name, fn in (
+            ("compute", lambda: gp.compute(x, yerr)),
+            ("log_likelihood", lambda: gp.log_likelihood(y)),
+            ("grad_log_likelihood", lambda: gp.grad_log_likelihood(y)),
+            ("apply_inverse", lambda: gp.apply_inverse(y))):
+        out[name] = timed_call(fn, "{0}: {1}".format(what, name), card)
+    fact = gp.solver._fact
+    log("  {0}: {1} levels, leaves of {2}, rank caps {3}, ranks used {4}"
+        .format(what, fact.levels, fact.leaf_size, fact.ranks,
+                fact.ranks_used))
+    return out
+
+
+def run_hodlr_gp(phase, dev, card):
+    """Phase 24: the HODLR GP API in float64."""
+    import george_tpu_torch as george
+    from george_tpu_torch import kernels
+    from george_tpu_torch.solvers import HODLRSolver, StateSpaceSolver
+
+    t_run = time.time()
+    phase("24: the HODLR GP API (config 4, float64) at N = {0}; a Matern32 "
+          "GP at N = {1}".format(HODLR_N, HODLR_LONG_N))
+    x, y, yerr = hodlr_data(HODLR_N)
+    gh = hodlr_gp(dev, solver=HODLRSolver, tol=1e-10)
+    gd = hodlr_gp(dev)
+    for g in (gh, gd):
+        g.compute(x, yerr)
+    ll_h, ll_d = gh.log_likelihood(y), gd.log_likelihood(y)
+    g_h, g_d = gh.grad_log_likelihood(y), gd.grad_log_likelihood(y)
+    check(np.allclose(ll_d, ll_h) and np.allclose(g_d, g_h),
+          "N={0}, tol 1e-10: HODLR log-likelihood {1!r} against the dense "
+          "BasicSolver's {2!r} (relative {3:.2e}), gradient {4} against "
+          "{5} (max relative {6:.2e}): np.allclose, as tests/test_solvers.py"
+          ":78-94 asserts; ranks used {7}".format(
+              HODLR_N, ll_h, ll_d, abs(ll_h - ll_d) / abs(ll_d), g_h, g_d,
+              max_rel(g_h, g_d), gh.solver._fact.ranks_used))
+    gh = hodlr_gp(dev, solver=HODLRSolver)
+    calls = hodlr_gp_calls(gh, x, y, yerr, "N={0}, tol 0.1".format(HODLR_N),
+                           card)
+    ll = gh.log_likelihood(y)
+    check(np.isfinite(ll) and np.all(np.isfinite(gh.grad_log_likelihood(y)))
+          and gh.solver._fact.levels == 6 and gh.solver._fact.leaf_size == 157,
+          "N={0}, tol 0.1: 6 levels, leaves of 157, finite log-likelihood "
+          "{1!r} (the dense one {2!r}, relative {3:.2e})".format(
+              HODLR_N, ll, ll_d, abs(ll - ll_d) / abs(ll_d)))
+
+    t, y5, yerr5 = example07_data(HODLR_LONG_N)
+    gs = george.GP(1.0 * kernels.Matern32Kernel(2.0), solver=StateSpaceSolver,
+                   device=dev)
+    gs.compute(t, yerr5)
+    ll_s = gs.log_likelihood(y5)
+    gh5 = george.GP(1.0 * kernels.Matern32Kernel(2.0), solver=HODLRSolver,
+                    tol=1e-10, device=dev)
+    calls5 = hodlr_gp_calls(gh5, t, y5, yerr5, "Matern32 N={0}, tol "
+                            "1e-10".format(HODLR_LONG_N), card)
+    ll_h5 = gh5.log_likelihood(y5)
+    fact = gh5.solver._fact
+    check(np.allclose(ll_s, ll_h5) and fact.levels == 9 and
+          fact.leaf_size == 196,
+          "Matern32 N={0}, tol 1e-10: 9 levels, leaves of 196, HODLR "
+          "log-likelihood {1!r} against the state-space solver's {2!r} "
+          "(relative {3:.2e}): np.allclose".format(
+              HODLR_LONG_N, ll_h5, ll_s, abs(ll_h5 - ll_s) / abs(ll_s)))
+    log("phase 24 took {0:.1f} s".format(time.time() - t_run))
+    return calls, calls5
+
+
+class _NoKernel(object):
+    """A launch counter for a path with no hand kernel (HODLR, the plain
+    dense route): ``run_sampler`` resets and reads it."""
+
+    launches = 0
+
+
+def batched_vg(lp):
+    """The batched value+gradient that ``run_mcmc`` takes for ``lp``."""
+    from george_tpu_torch.samplers import mcmc
+
+    return getattr(lp, "batched_value_and_grad", None) \
+        or mcmc._autograd_vg(lp)
+
+
+def vg_call(lp, z, what, card):
+    """One batched value+gradient of ``lp`` at ``z``, timed and
+    profiled."""
+    vg = batched_vg(lp)
+    return timed_call(lambda: vg(z), what, card)
+
+
+def run_hodlr_sampler(phase, dev, card):
+    """Phase 25: the HODLR sampler route against the dense one."""
+    import torch
+    from george_tpu_torch import optimize
+    from george_tpu_torch.samplers import build_gp_log_prob
+    from george_tpu_torch.samplers import split_rhat
+
+    t_run = time.time()
+    phase("25: the HODLR sampler route (config 4's match leg, N = {0}, "
+          "NUTS over {1} chains) against the dense route ({2} "
+          "chains)".format(HODLR_SAMPLER_N, HODLR_CHAINS,
+                           HODLR_DENSE_CHAINS))
+    x, y, yerr = hodlr_data(HODLR_SAMPLER_N)
+    gp = hodlr_gp(dev)
+    prior = bench_prior(gp, dev, torch.float64)
+    lp_match, _ = build_gp_log_prob(
+        gp, x, y, yerr, log_prior=prior, method="hodlr",
+        method_options=dict(MATCH_OPTS), device=dev)
+    fit = optimize.minimize(gp, y, x=x, yerr=yerr, log_prior=prior,
+                            method="dense", device=dev)
+    theta_map = torch.as_tensor(fit.x, device=dev)
+    lp_h, _ = build_gp_log_prob(
+        gp, x, y, yerr, log_prior=prior, method="hodlr",
+        method_options=dict(HODLR_OPTS), device=dev)
+    lp_d, _ = build_gp_log_prob(gp, x, y, yerr, log_prior=prior,
+                                method="dense", device=dev)
+    check(lp_h.engine == "hodlr" and lp_d.engine == "torch_dense_autograd"
+          and fit.success,
+          "engines {0} and {1}; the MAP {2} ({3} evaluations); the replay's "
+          "ranks {4}".format(lp_h.engine, lp_d.engine,
+                             np.round(fit.x, 4), fit.evaluations,
+                             lp_h.hodlr_ranks))
+    z0 = theta_map + 0.1 * torch.as_tensor(
+        np.random.default_rng(5).standard_normal(
+            (HODLR_CHAINS, len(theta_map))), device=dev)
+    zd = z0[:HODLR_DENSE_CHAINS].contiguous()
+    ld, gd = batched_vg(lp_d)(z0)
+    for what, lp in (("the match leg's density (tol {0}, pinned at the "
+                      "generating parameters)".format(MATCH_OPTS["tol"]),
+                      lp_match),
+                     ("the sampled density (tol {0}, pinned at the "
+                      "MAP)".format(HODLR_OPTS["tol"]), lp_h)):
+        lh, gh = batched_vg(lp)(z0)
+        log("  {0} against the dense one around the MAP: max |delta ll| "
+            "{1:.3e} nats, max |delta grad| {2:.3e}".format(
+                what, float((lh - ld).abs().max()),
+                float((gh - gd).abs().max())))
+    hodlr_ms = vg_call(lp_h, z0, "HODLR value+gradient, N={0}, B={1}".format(
+        HODLR_SAMPLER_N, HODLR_CHAINS), card)
+    dense_ms = vg_call(lp_d, zd, "dense value+gradient, N={0}, B={1}".format(
+        HODLR_SAMPLER_N, HODLR_DENSE_CHAINS), card)
+    runs = {}
+    for name, lp, z in (("HODLR", lp_h, z0), ("dense", lp_d, zd)):
+        (r,) = run_sampler(lp, z, (6,), _NoKernel, dev, "nuts",
+                           max_depth=NUTS_DEPTH, num_warmup=HODLR_WARMUP,
+                           num_samples=HODLR_SAMPLES,
+                           block_size=HODLR_SAMPLES, warmup_block_size=BLOCK)
+        res, seconds = r[0], r[1]
+        div = float(res.diverging.double().mean())
+        rhat = split_rhat(res.samples.double()).cpu().numpy()
+        check(bool(torch.all(torch.isfinite(res.samples))) and div < 0.01,
+              "{0} NUTS: all draws finite, divergence fraction {1:.5f} < "
+              "0.01; split R-hat {2}; {3} chains, {4} value+gradient calls "
+              "in {5:.2f} s ({6:.2f} ms a call), {7:.2f} leapfrogs per draw; "
+              "on {8}".format(
+                  name, div, np.round(rhat, 4), z.shape[0],
+                  res.num_evaluations, seconds,
+                  seconds * 1e3 / res.num_evaluations,
+                  float(res.n_leapfrog.double().mean()), card))
+        runs[name] = res
+    posteriors_agree(runs["HODLR"], runs["dense"],
+                     "HODLR against dense NUTS, N={0}".format(
+                         HODLR_SAMPLER_N))
+    draws = runs["dense"].samples.reshape(-1, len(theta_map))
+    pick = torch.as_tensor(np.random.default_rng(7).choice(
+        draws.shape[0], HODLR_CHAINS, replace=False), device=dev)
+    zs = draws[pick].double().contiguous()
+    (lh, gh), (ld, gd) = batched_vg(lp_h)(zs), batched_vg(lp_d)(zs)
+    log("  at {0} of the dense run's draws: HODLR against dense, max |delta "
+        "ll| {1:.3e} nats (median {2:.3e}), max |delta grad| {3:.3e}".format(
+            HODLR_CHAINS, float((lh - ld).abs().max()),
+            float((lh - ld).abs().median()), float((gh - gd).abs().max())))
+
+    x, y, yerr = hodlr_data(HODLR_N)
+    gp = hodlr_gp(dev)
+    gp.set_parameter_vector(fit.x)
+    lp_b, theta_b = build_gp_log_prob(
+        gp, x, y, yerr, log_prior=prior, method="hodlr",
+        method_options=dict(HODLR_OPTS), device=dev)
+    zb = theta_b + 0.1 * torch.as_tensor(
+        np.random.default_rng(6).standard_normal(
+            (HODLR_BIG_CHAINS, len(theta_b))), device=dev)
+    big_ms = vg_call(lp_b, zb, "HODLR value+gradient, N={0}, B={1} (ranks "
+                     "{2})".format(HODLR_N, HODLR_BIG_CHAINS,
+                                   lp_b.hodlr_ranks), card)
+    lb, gb = lp_b.batched_value_and_grad(zb)
+    check(bool(torch.all(torch.isfinite(lb)) and torch.all(
+        torch.isfinite(gb))), "N={0}: finite values and gradients over {1} "
+          "chains".format(HODLR_N, HODLR_BIG_CHAINS))
+    log("phase 25 took {0:.1f} s".format(time.time() - t_run))
+    return hodlr_ms, dense_ms, big_ms
+
+
+def run_smc_config3(phase, dev, card, smc):
+    """Phase 26: SMC over config 3's posterior, every target evaluation a
+    launch of ``dense_vg.cu``.  Returns the launches of the HMC run."""
+    import torch
+    from george_tpu_torch.ops import dense
+    from george_tpu_torch.samplers import run_smc
+
+    t_run = time.time()
+    phase("26: SMC at config 3 (benchmarks/smc_period.py: N = {0}, {1} "
+          "particles, {2} mutations a stage)".format(
+              SMC_N, SMC_PARTICLES, SMC_MUTATIONS))
+    gp, lp, theta0 = smc
+    check(lp.engine == "cuda_dense", "engine {0}".format(lp.engine))
+    dim = len(theta0)
+    scale = torch.as_tensor([1.0, 1.0, 0.8, 1.0, 1.0][:dim], device=dev,
+                            dtype=theta0.dtype)
+    const = float(-torch.sum(torch.log(scale)) - 0.5 * dim * np.log(
+        2 * np.pi))
+
+    def log_init(z):
+        d = (z - theta0) / scale
+        return -0.5 * torch.sum(d * d, dim=-1) + const
+
+    i_period = next(i for i, nm in enumerate(gp.get_parameter_names())
+                    if nm.endswith("log_period"))
+    out = {}
+    for mutation, seed in (("hmc", 0), ("rw", 1)):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        p0 = theta0 + scale * torch.randn((SMC_PARTICLES, dim), generator=gen,
+                                          device=dev, dtype=theta0.dtype)
+        dense.dense_vg.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = run_smc(lp, log_init, p0, gen, num_mutations=SMC_MUTATIONS,
+                      mutation=mutation, device=dev)
+        torch.cuda.synchronize()
+        elapsed = time.time() - t0
+        launches = dense.dense_vg.launches
+        periods = torch.exp(res.particles[:, i_period].double())
+        median = float(torch.median(periods))
+        rate = res.num_stages * SMC_MUTATIONS * SMC_PARTICLES / elapsed
+        check(launches == res.num_evaluations and bool(torch.all(
+            torch.isfinite(res.particles))) and
+              abs(median - SMC_TRUE_PERIOD) < 0.15,
+              "SMC ({0}): dense_vg launches {1} == target evaluations {2}; "
+              "period median {3:.4f} within 0.15 of the true {4}; {5} "
+              "stages, acceptance {6:.3f}, log Z {7:.3f}; {8:.2f} s, {9:.1f} "
+              "particle-mutations/s; on {10}".format(
+                  mutation, launches, res.num_evaluations, median,
+                  SMC_TRUE_PERIOD, res.num_stages, float(res.acceptance),
+                  float(res.log_evidence), elapsed, rate, card))
+        out[mutation] = (launches, rate, elapsed)
+    log("phase 26 took {0:.1f} s".format(time.time() - t_run))
+    return out
+
+
+def run_advi_checkpoint(phase, dev, card, lp64, theta64, chees):
+    """Phase 27: ADVI on the main path over ``kalman_vg.cu`` against phase
+    4's ChEES posterior, and a NUTS state saved and restored on the card.
+    Returns the Kalman kernel's launches in the ADVI run."""
+    import torch
+    from george_tpu_torch import checkpoint
+    from george_tpu_torch.ops import kalman
+    from george_tpu_torch.samplers import hmc, nuts, run_advi
+
+    t_run = time.time()
+    phase("27: ADVI on the main path ({0} steps, {1} draws a step, "
+          "float64) and a checkpoint".format(ADVI_STEPS, ADVI_MC))
+    kalman.kalman_vg.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = run_advi(lp64, theta64, 3, num_steps=ADVI_STEPS, num_mc=ADVI_MC,
+                   device=dev)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = kalman.kalman_vg.launches
+    draws = chees.samples.double().reshape(-1, chees.samples.shape[-1])
+    m, sd = draws.mean(0), draws.std(0)
+    gap = (res.mean - m).abs()
+    first, last = float(res.elbo[:100].mean()), float(res.elbo[-100:].mean())
+    check(launches == ADVI_STEPS and bool(torch.all(gap <= sd)) and
+          last > first,
+          "ADVI: kalman_vg launches {0} == steps {1}; fitted mean {2} "
+          "within one posterior sd {3} of phase 4's ChEES mean {4} (gaps "
+          "{5}); ELBO's mean over the last 100 steps {6:.3f} > the first "
+          "100's {7:.3f}; {8:.2f} s, {9:.3f} ms a step; on {10}".format(
+              launches, ADVI_STEPS, np.round(res.mean.cpu().numpy(), 4),
+              np.round(sd.cpu().numpy(), 4), np.round(m.cpu().numpy(), 4),
+              np.round(gap.cpu().numpy(), 4), last, first, seconds,
+              seconds * 1e3 / ADVI_STEPS, card))
+
+    vg = lp64.batched_value_and_grad
+    gen = torch.Generator(device=dev).manual_seed(12)
+    z = theta64 + 0.1 * torch.randn((256, len(theta64)), generator=gen,
+                                    device=dev, dtype=theta64.dtype)
+    inv_mass = torch.ones(len(theta64), device=dev, dtype=theta64.dtype)
+    step = torch.tensor(0.2, device=dev, dtype=theta64.dtype)
+    state, _ = nuts.nuts_step(gen, hmc.new_state(vg, z), vg, step, inv_mass,
+                              max_depth=NUTS_DEPTH)
+    saved = checkpoint.sampler_state(state, gen, step, inv_mass)
+    folder = os.path.join(HERE, "build")
+    os.makedirs(folder, exist_ok=True)
+    path = checkpoint.save_checkpoint(
+        os.path.join(folder, "chip_smoke_checkpoint"), saved)
+    back = checkpoint.restore_checkpoint(path, target=saved, device=dev)
+    same = all(torch.equal(a, b) and a.dtype == b.dtype and
+               a.device == b.device
+               for a, b in zip(back["chain_states"], state))
+    resumed = torch.Generator(device=dev)
+    resumed.set_state(back["key"].cpu())
+    a, _ = nuts.nuts_step(gen, state, vg, step, inv_mass,
+                          max_depth=NUTS_DEPTH)
+    b, _ = nuts.nuts_step(resumed, back["chain_states"], vg,
+                          back["step_size"], back["inv_mass"],
+                          max_depth=NUTS_DEPTH)
+    check(same and all(torch.equal(u, v) for u, v in zip(a, b)),
+          "a NUTS state of {0} chains saved to {1} and restored on {2} bit "
+          "for bit; the next transition from it and its generator the same "
+          "bits as from the original".format(z.shape[0],
+                                             os.path.relpath(path, HERE),
+                                             dev))
+    os.remove(path)
+    log("phase 27 took {0:.1f} s".format(time.time() - t_run))
+    return launches, seconds
+
+
 def run(dev, card):
     import torch
     import george_tpu_torch as george
@@ -2838,6 +3311,10 @@ def run(dev, card):
                        ("dense path", dense_main)] +
                       [("dense zoo " + name, lp.dense_vg)
                        for name, (_, lp) in dzoo.items()])
+    smc = smc_posterior(dev)
+    check(smc[1].engine == "cuda_dense", "SMC path engine is {0}".format(
+        smc[1].engine))
+    built += instances([("SMC config 3 (phase 26)", smc[1].dense_vg)])
     built += cov_instances() + mxu_instances()
     built += [("state-space GP (phase 23)", torch.float64,
                example07_spec().instance(torch.float64))]
@@ -3192,6 +3669,14 @@ def run(dev, card):
     # -- phase 23: the GP API's state-space solver and the fit ---------------
     ss_lines = run_state_space_gp(phase, dev, card)
 
+    # -- phases 24-27: HODLR, SMC, ADVI and a checkpoint ----------------------
+    run_hodlr_gp(phase, dev, card)
+    run_hodlr_sampler(phase, dev, card)
+    smc_runs = run_smc_config3(phase, dev, card, smc)
+    advi_launches, _ = run_advi_checkpoint(phase, dev, card, lp64, theta64,
+                                           runs[0][0])
+    kernels_line[0]["advi_launches"] = advi_launches
+
     kernels_line += [{
         "name": "kalman_vg (streaming, N > 32768)",
         "route": "cuda",
@@ -3210,6 +3695,7 @@ def run(dev, card):
         "source": "george_tpu_torch/csrc/dense_vg.cu",
         "replaces": "george_tpu/ops/pallas_dense.py:420",
         "launches": dense_launches,
+        "smc_launches": smc_runs["hmc"][0],
         "max_abs_err": dense_err,
         "ms": d_ms,
         "plain_ms": d_plain,

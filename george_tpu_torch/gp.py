@@ -12,7 +12,8 @@ Everything runs on the GP's device in its dtype (default: the CUDA card,
 float64); arrays come in and go out as numpy.  The solver is george's
 choice: ``TrivialSolver`` for an absent or empty kernel, ``BasicSolver``
 (dense Cholesky) otherwise, or the one passed as ``solver=``, e.g.
-``StateSpaceSolver`` (O(N), 1-D Markovian kernels).  On the card, large
+``HODLRSolver`` (O(N log^2 N), approximate) or ``StateSpaceSolver`` (O(N),
+1-D Markovian kernels).  On the card, large
 stationary covariance builds (``compute``, the gradient, the cross and
 prior matrices of ``predict``) go through the tiled kernel of
 ``ops/cov.py`` under ``config.pallas_covariance``, and the state-space
@@ -82,8 +83,8 @@ class GP(ModelSet):
         variance added to the diagonal (default log(TINY)).
     :param fit_white_noise: include white-noise parameters in the active set.
     :param solver: solver class (``TrivialSolver`` / ``BasicSolver`` /
-        ``StateSpaceSolver``; default ``TrivialSolver`` for an absent or
-        empty kernel, ``BasicSolver`` otherwise).
+        ``HODLRSolver`` / ``StateSpaceSolver``; default ``TrivialSolver``
+        for an absent or empty kernel, ``BasicSolver`` otherwise).
     :param device: where the solver runs (default: the CUDA card; raises
         without one unless ``device="cpu"`` is given).
     :param dtype: the solver's floating type (default float64).

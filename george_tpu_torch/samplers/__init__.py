@@ -1,5 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Posterior inference over GP hyperparameters: NUTS, HMC and ChEES-HMC.
+"""Posterior inference over GP hyperparameters: NUTS, HMC, ChEES-HMC,
+tempered SMC (``smc.run_smc``) and ADVI (``advi.run_advi``).
 
 Quick start::
 
@@ -16,6 +17,8 @@ from .nuts import nuts_step, NUTSInfo
 from .chees import chees_step, ChEESInfo
 from .mcmc import run_mcmc, MCMCResult
 from .diagnostics import split_rhat, effective_sample_size, summary
+from .smc import run_smc, SMCResult
+from .advi import run_advi, ADVIResult
 
 __all__ = [
     "build_gp_log_prob", "traceable_model_fn",
@@ -24,4 +27,5 @@ __all__ = [
     "chees_step", "ChEESInfo",
     "run_mcmc", "MCMCResult",
     "split_rhat", "effective_sample_size", "summary",
+    "run_smc", "SMCResult", "run_advi", "ADVIResult",
 ]

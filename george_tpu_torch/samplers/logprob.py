@@ -7,12 +7,15 @@ a fused engine applies, attaches ``log_prob.batched_value_and_grad``: on the
 state-space route the fused Kalman value+gradient, on the dense route the
 fused dense value+gradient or, with ``config.dense_mxu_sampling``, the
 blocked dense engine (each over CUDA kernels for tensors on the card, its
-plain PyTorch version for tensors on the CPU), wrapped with the bounds
-prior, the NaN guards and the optional extra prior — the exact semantics of
-``vmap(value_and_grad(log_prob))``.
+plain PyTorch version for tensors on the CPU), on the HODLR route the
+level-batched factorization's value and one backward pass, wrapped with the
+bounds prior, the NaN guards and the optional extra prior — the exact
+semantics of ``vmap(value_and_grad(log_prob))``.
 """
 
 import logging
+import math
+import warnings
 
 import numpy as np
 import torch
@@ -20,14 +23,11 @@ import torch
 from .. import config
 from .._device import resolve_device
 from ..modeling import CallableModel, ConstantModel
-from ..ops import dense, dense_mxu, kalman
+from ..ops import dense, dense_mxu, hodlr_core, kalman
 from ..ops import state_space as sskf
 
 __all__ = ["build_gp_log_prob", "traceable_model_fn"]
 
-_NOT_PORTED = {
-    "hodlr": "the HODLR engine (ROADMAP Queue A 'HODLR')",
-}
 _STATE_SPACE = ("state_space", "state_space_sequential",
                 "state_space_parallel")
 
@@ -69,7 +69,7 @@ def _bounds_arrays(gp):
 
 
 def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
-                      device=None, dtype=torch.float64):
+                      method_options=None, device=None, dtype=torch.float64):
     """Build a GP hyperparameter posterior as a batched torch function.
 
     :param gp: a :class:`george_tpu_torch.GP` (its *current* frozen
@@ -82,9 +82,16 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
         the exact O(N) Kalman likelihood for 1-D Markovian kernels;
         ``"state_space_parallel"``: the same likelihood by the
         associative-scan filter (O(log N) depth); ``"dense"``: covariance
-        build + Cholesky, O(N^3), for every kernel; ``"auto"``: state-space
-        where the kernel admits it, dense otherwise.  The HODLR route comes
-        with a later slice and raises ``NotImplementedError``.
+        build + Cholesky, O(N^3), for every kernel; ``"hodlr"``: the
+        O(N log^2 N) hierarchical likelihood, approximate to its ``tol``,
+        for kernels with no state-space form (see
+        :func:`_build_hodlr_log_prob`); ``"auto"``: state-space where the
+        kernel admits it, dense otherwise (``"hodlr"`` is opt-in because it
+        is approximate).
+    :param method_options: for ``"hodlr"``: ``min_size``, ``tol``,
+        ``max_rank`` (the ``HODLRSolver`` knobs), ``rank_margin``,
+        ``order`` and ``fixed_pivots``; an unknown option raises
+        ``TypeError``.
     :param device: where the density is evaluated (default: the CUDA
         card; raises without one unless ``device="cpu"`` is given).
     :param dtype: the dtype of the returned ``theta0``.
@@ -95,12 +102,7 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
     names what evaluates ``log_prob.batched_value_and_grad``.
     """
     device = resolve_device(device)
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            "method '{0}' is not ported yet: {1}".format(
-                method, _NOT_PORTED[method])
-        )
-    if method not in ("auto", "dense") + _STATE_SPACE:
+    if method not in ("auto", "dense", "hodlr") + _STATE_SPACE:
         raise ValueError("unknown method '{0}'".format(method))
 
     x_host = np.ascontiguousarray(gp.parse_samples(x), dtype=np.float64)
@@ -115,7 +117,11 @@ def build_gp_log_prob(gp, x, y, yerr=0.0, log_prior=None, method="auto",
             "kernel/inputs have no exact state-space form; use "
             "method='dense'"
         )
-    if method != "dense" and usable:
+    if method == "hodlr":
+        log_prob = _build_hodlr_log_prob(
+            gp, node, x_host, y_host, yerr2, log_prior, device,
+            dict(method_options or {}))
+    elif method != "dense" and usable:
         log_prob = _build_state_space_log_prob(
             gp, node, x_host, y_host, yerr2, log_prior, device,
             parallel=method == "state_space_parallel"
@@ -373,3 +379,139 @@ def _finish_batched_vg(vg_core, theta_full0, unfrozen, lo, hi, log_prior):
         return lp, g
 
     return batched_value_and_grad
+
+
+def _build_hodlr_log_prob(gp, node, x_host, y_host, yerr2, log_prior, device,
+                          opts):
+    """O(N log^2 N) HODLR posterior density for the sampler layer.
+
+    The level-batched factorization (``ops/hodlr_core.py``) runs for every
+    chain at once, never an N x N matrix, and one backward pass through it
+    gives every chain's gradient (see ``ops/hodlr_core``'s docstring for
+    why reverse mode, where the JAX package takes one ``jvp`` a
+    parameter).
+
+    The plan and per-block ranks are pinned host-side: one rank-adaptive
+    factorization at the GP's current parameters (``hodlr_compute``, with
+    its escalation on saturation), every rank then multiplied by
+    ``rank_margin`` (default 2, capped at the block size) so that the
+    compression stays inside tolerance as the sampler moves.  With
+    ``fixed_pivots`` (default) the ACA pivots are recorded once there at a
+    100x tighter tolerance and replayed with a damped reciprocal, which
+    makes the density a smooth deterministic function of theta; a record
+    that saturates its ranks warns, as ``hodlr_compute`` does.  Without
+    it, each evaluation pivots adaptively per chain.  ``min_size`` /
+    ``tol`` / ``max_rank`` / ``order`` are the ``HODLRSolver``'s.
+
+    Likelihoods are approximate to ``tol``.  The port's float64 is the
+    default type (the float32 gradients carry the compression's noise).
+    """
+    from ..solvers.hodlr import HODLRSolver
+
+    min_size = int(opts.pop("min_size", 100))
+    tol = float(opts.pop("tol", 0.1))
+    max_rank = opts.pop("max_rank", None)
+    rank_margin = float(opts.pop("rank_margin", 2.0))
+    order = opts.pop("order", "auto")
+    fixed_pivots = bool(opts.pop("fixed_pivots", True))
+    if opts:
+        raise TypeError(
+            "unknown hodlr method_options: {0}".format(sorted(opts)))
+
+    # The solver's internal ordering; the likelihood is
+    # permutation-invariant.
+    solver = HODLRSolver(gp.kernel, min_size=min_size, tol=tol,
+                         max_rank=max_rank, order=order, device=device)
+    perm = solver._ordering(x_host)
+    if perm is not None:
+        x_host, y_host, yerr2 = x_host[perm], y_host[perm], yerr2[perm]
+
+    theta_k0 = gp.kernel.get_parameter_vector(include_frozen=True)
+    wn0 = np.broadcast_to(np.exp(gp.white_noise.get_value(
+        gp._model_input(x_host))), (len(x_host),))
+    fact0 = hodlr_core.hodlr_compute(
+        node, theta_k0, x_host, yerr2 + wn0, min_size=min_size, tol=tol,
+        max_rank=max_rank, device=device)
+    levels, leaf_size, n_pad = fact0.levels, fact0.leaf_size, fact0.n_pad
+    full = tuple(n_pad >> (q + 1) for q in range(levels))
+    ranks = tuple(min(full[q], int(math.ceil(rank_margin * fact0.ranks[q])))
+                  for q in range(levels))
+    n = len(x_host)
+    valid = torch.arange(n_pad, device=device) < n
+    x_pad64 = hodlr_core._pad_points(
+        torch.as_tensor(x_host, device=device), n_pad)
+
+    pivots = None
+    if fixed_pivots:
+        pivots, saturated, ranks = hodlr_core.record_pivots(
+            node, torch.as_tensor(theta_k0, device=device), x_pad64, valid,
+            levels, ranks, tol * 1e-2)
+        if saturated:
+            warnings.warn(
+                "HODLR pivot record at tol={0} saturated its rank caps; the "
+                "replayed density is approximate beyond them (raise "
+                "rank_margin)".format(tol * 1e-2))
+    compute = hodlr_core._compute_all_fn(
+        node, levels, leaf_size, ranks,
+        pivot_mode="fixed" if fixed_pivots else "replay")
+    x_pads = {}
+    norm_const = 0.5 * n * math.log(2.0 * math.pi)
+
+    def ll_core(th_kernel, r, noise):
+        """(B, P), (B or 1, N), (B, N) -> ll (B,), differentiable."""
+        dt = th_kernel.dtype
+        if dt not in x_pads:
+            x_pads[dt] = x_pad64.to(dt)
+        x_pad = x_pads[dt]
+        r_pad = hodlr_core._pad_vector(r, n_pad, 0.0)
+        diag_pad = hodlr_core._pad_vector(noise, n_pad, 1.0)
+        piv = pivots
+        with hodlr_core.fp32_matmuls():
+            if piv is None:
+                # Each chain's own adaptive pivots, replayed with the plain
+                # reciprocal.
+                with torch.no_grad():
+                    piv, _ = hodlr_core.adaptive_pivots(
+                        node, th_kernel.detach(), x_pad, valid, levels,
+                        ranks, tol)
+            ll, _ = hodlr_core.hodlr_loglike(compute, th_kernel, x_pad, r_pad,
+                                             diag_pad, valid, tol, piv)
+        return ll - norm_const
+
+    def loglike(th_kernel, d, mean, log_wn):
+        noise = (d["yerr2"] + torch.exp(log_wn)).expand(th_kernel.shape[0],
+                                                         -1)
+        return ll_core(th_kernel, d["y"] - mean, noise)
+
+    host = dict(x=x_host, y=y_host, yerr2=yerr2)
+    log_prob, theta_full0, unfrozen, lo, hi = _posterior(
+        gp, x_host, host, log_prior, device, loglike)
+    mean_fn = traceable_model_fn(gp.mean, x_host, device, torch.float64)
+    wn_fn = traceable_model_fn(gp.white_noise, x_host, device, torch.float64)
+    n_mean = gp.mean.full_size
+    n_wn = gp.white_noise.full_size
+    data = {}
+
+    def vg_core(theta_full):
+        """(B, D) -> (ll (B,), d ll / d theta_active (B, n_active)): the
+        value, then one backward pass for every chain and parameter."""
+        dt = theta_full.dtype
+        if dt not in data:
+            data[dt] = {k: torch.tensor(v, device=device).to(dt)
+                        for k, v in host.items()}
+        d = data[dt]
+        with torch.enable_grad():
+            th = theta_full.detach().requires_grad_(True)
+            mean = mean_fn(th[:, :n_mean], d["x"])
+            log_wn = wn_fn(th[:, n_mean:n_mean + n_wn], d["x"])
+            ll = loglike(th[:, n_mean + n_wn:], d, mean, log_wn)
+            grad, = torch.autograd.grad(ll.sum(), th)
+        return ll.detach(), grad[:, unfrozen]
+
+    log_prob.batched_value_and_grad = _finish_batched_vg(
+        vg_core, theta_full0, unfrozen, lo, hi, log_prior)
+    log_prob.hodlr_vg = vg_core
+    log_prob.hodlr_ranks = ranks
+    log_prob.engine = "hodlr"
+    return log_prob
+

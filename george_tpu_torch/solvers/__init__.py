@@ -3,14 +3,15 @@
 
   * :class:`TrivialSolver` — diagonal only (no kernel);
   * :class:`BasicSolver` — dense Cholesky, O(N^3);
+  * :class:`HODLRSolver` — hierarchical off-diagonal low-rank
+    factorization, O(N log^2 N), approximate to its ``tol``;
   * :class:`StateSpaceSolver` — exact Kalman-filter solver, O(N), for 1-D
     Markovian kernels (Exp / Matern32 / Matern52 / Cosine / Constant sums).
-
-The HODLR solver comes with a later slice.
 """
 
 from .trivial import TrivialSolver
 from .basic import BasicSolver
+from .hodlr import HODLRSolver
 from .state_space import StateSpaceSolver
 
-__all__ = ["TrivialSolver", "BasicSolver", "StateSpaceSolver"]
+__all__ = ["TrivialSolver", "BasicSolver", "HODLRSolver", "StateSpaceSolver"]

@@ -163,6 +163,17 @@ def test_trivial_solver_and_empty_kernel():
     _close(draws, jgp.solver.apply_sqrt(z) + jgp._call_mean(jgp._x),
            "empty draws")
 
+    # The package's top level names what the JAX package's does: the four
+    # solvers, and ``optimize`` loaded on first use.
+    assert george_tpu_torch.__all__ == george_tpu.__all__
+    for name in george_tpu.__all__:
+        assert getattr(george_tpu_torch, name) is not None, name
+    assert george_tpu_torch.TrivialSolver is TrivialSolver
+    assert george_tpu_torch.StateSpaceSolver is StateSpaceSolver
+    assert george_tpu_torch.HODLRSolver.__module__ == \
+        "george_tpu_torch.solvers.hodlr"
+    assert george_tpu_torch.optimize.__name__ == "george_tpu_torch.optimize"
+
 
 def _fail_compute(*args, **kwargs):
     raise AssertionError("unpickled GP shouldn't need to be computed")

@@ -255,8 +255,12 @@ def test_entry_points_raise_without_a_device():
     gp = george_tpu_torch.GP(1.0 * tk.Matern32Kernel(1.0), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_build(gp, x, y, yerr)
-    with pytest.raises(NotImplementedError, match="HODLR"):
-        torch_build(gp, x, y, yerr, method="hodlr", device="cpu")
+    # The HODLR route is ported (a tree of no levels at this N: the leaves
+    # alone); an unknown method raises.
+    lp, _ = torch_build(gp, x, y, yerr, method="hodlr", device="cpu")
+    assert lp.engine == "hodlr"
+    with pytest.raises(ValueError, match="unknown method"):
+        torch_build(gp, x, y, yerr, method="bogus", device="cpu")
 
 
 @pytest.mark.gpu

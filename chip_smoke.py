@@ -3,6 +3,7 @@
 """Drive the PyTorch port's paths on one CUDA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 28-30   # the multi-rank layer alone
 
 The paths, each through the entry points a user calls, each over
 hand-written CUDA kernels but HODLR's:
@@ -48,7 +49,15 @@ hand-written CUDA kernels but HODLR's:
 * SMC at config 3 (``benchmarks/smc_period.py``: the ExpSine2 x
   ExpSquared GP, 4096 particles), every target evaluation one launch of the
   dense value+gradient kernel, and ADVI on the main path, every step one
-  launch of the Kalman kernel.
+  launch of the Kalman kernel;
+* the multi-rank layer (``george_tpu_torch.parallel``): the main path and
+  config #5 with their chains sharded over ranks (``run_mcmc_sharded``),
+  the BASELINE model's likelihood and gradient data-sharded
+  (``make_sharded_gp_log_prob_factory``, the distributed Cholesky), and SMC
+  with its particles' evaluations sharded (``run_smc_sharded``).  The
+  script needs one card: 2 or 4 ranks share it over a gloo process group
+  (and one rank over NCCL), each rank on its own chains, data rows or
+  particles, over the same kernels.
 
 Phases (any failure exits non-zero):
 
@@ -98,7 +107,7 @@ Phases (any failure exits non-zero):
     points and return_cov at 1024) on the float32 kernel route, the float32
     plain route and the float64 plain route: each call's launches as
     predicted, and the kernel route's errors against float64 at most twice
-    the plain float32 route's (plus a stated floor); a 20-iteration
+    the plain float32 route's (plus a stated floor); an 8-iteration
     L-BFGS-B fit over ``nll`` / ``grad_nll``; "auto" routing (N = 1024
     launches, N = 1000 and a blocked leaf do not); config #5's kernel at
     N = 8192 under the same gates;
@@ -195,6 +204,33 @@ Phases (any failure exits non-zero):
     ChEES mean, the ELBO rising; a NUTS state checkpointed, restored on the
     card bit for bit, and the next transition from it the same bits.
 
+28. chain-sharded sampling: the main path's ChEES leg (phase 4's model,
+    16384 chains, 150 + 300, seed 1) over 2 ranks, and once over 1 rank
+    on NCCL: each rank's Kalman launches equal to its value+gradient calls
+    at B = 16384 / P, the pooled step size and mass the same bits on every
+    rank, every chain distinct, split R-hat < 1.01, the means within 5
+    combined MC standard errors of phase 4's; config #5 under NUTS (phase
+    22's run) over 2 and 4 ranks, ``dense_vg.cu``'s launches equal to the
+    evaluations on each rank, the means against phase 22's;
+29. data-sharded likelihoods, float64, over 2 and 4 ranks: the BASELINE
+    model (``benchmarks/chol16k.py``) at N = 16384 through the distributed
+    Cholesky (``"auto"``), the replicated route at N = 4096 and a padded
+    case at N = 16000: value within rtol 1e-9 and gradient within rtol
+    1e-7 of the single-process ``GP.log_likelihood`` /
+    ``grad_log_likelihood``, one covariance launch a value and one forward
+    and one VJP launch a gradient on every rank, each call timed
+    (``profiling.timeit``; one ``profiling.trace``) with each rank's peak
+    memory (the padded case over 4 ranks only); HMC over chains x data on a
+    2 x 2 mesh at N = 1024 (finite draws, mean acceptance > 0.2);
+30. SMC at config 3 (phase 26's HMC run) over 2 ranks: stages,
+    temperatures, particles and log evidence equal to phase 26's at rtol
+    1e-10, ``dense_vg.cu`` launched on each rank at B = 2048.
+    Each rank is a process of its own (``torch.multiprocessing``, one
+    spawn of 4: the P = 2 jobs run on the first two) on the card, the
+    NCCL rank this process; the kernels are built before the ranks start,
+    which only load them.  Each phase prints the share of its wall spent
+    in collectives.
+
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
 a CUDA card, or without the package beside this script, it exits with
@@ -287,7 +323,9 @@ GP_PREDICT_COV = 1024
 GP5_N = 8192
 SAMPLER_N = 1024
 SAMPLER_CHAINS = 64
-FIT_ITERATIONS = 20
+# 8 fit iterations, not 20, for the script's time since phases 28-30
+# (each objective ~0.7 s at N = 16384).
+FIT_ITERATIONS = 8
 EPS32 = float(np.finfo(np.float32).eps)
 # The float32 covariance kernel against the float64 plain version on the
 # same (float32) inputs: K within 8 float32 ulps of max |K| (the exp and
@@ -392,7 +430,8 @@ HODLR_CHAINS = 64
 HODLR_DENSE_CHAINS = 8
 HODLR_BIG_CHAINS = 32
 HODLR_WARMUP = 60
-HODLR_SAMPLES = 100
+# 70 draws, not 100, for the script's time since phases 28-30.
+HODLR_SAMPLES = 70
 MATCH_OPTS = {"tol": 1e-4, "min_size": 256}
 HODLR_OPTS = {"tol": 1e-8, "min_size": 256}
 # Phase 26: BASELINE.json config 3 (benchmarks/smc_period.py): N = 120,
@@ -405,6 +444,24 @@ SMC_TRUE_PERIOD = 2.3
 # Phase 27: ADVI on the main path (mean-field, 8 draws a step).
 ADVI_STEPS = 1000
 ADVI_MC = 8
+# Phases 28-30: the multi-rank layer (parallel/).  P ranks share the one
+# card the script needs, over a gloo group (the phase-28 ChEES leg also
+# once at world size 1 over NCCL): the chain-sharded main path (phase 4's
+# model and schedule) and config #5 under NUTS (phase 22's); the
+# data-sharded BASELINE model of benchmarks/chol16k.py in float64 through
+# the distributed Cholesky at N = 16384, the replicated route at 4096 and a
+# padded case at 16000, and chains x data HMC on a 2 x 2 mesh
+# (tests/test_parallel.py's test_chains_by_data_hmc at N = 1024); SMC at
+# config 3 (phase 26's run, particle-sharded).
+SHARD_WORLDS = (2, 4)
+# (route, N, world sizes): the padded case at P = 4 only, for the script's
+# time (the gloo transfers through the host make a value+gradient at
+# N = 16384 7-15 s on an NVIDIA H100 80GB HBM3, 700.00 W).
+SHARD_CASES = (("dist_chol", 16384, (2, 4)), ("replicated", 4096, (2, 4)),
+               ("dist_chol padded", 16000, (4,)))
+MESH_HMC_N = 1024
+MESH_HMC_CHAINS = 2
+SHARD_TIMEOUT_S = 600
 
 
 def log(*args):
@@ -1256,6 +1313,19 @@ def cov_instances():
                 seen.add(inst.key())
                 out.append(("stationary_cov " + label, dtype, inst))
     return out
+
+
+def sharded_instances():
+    """(label, dtype, instance) of the float64 covariance kernels phase 29
+    launches (the BASELINE model's and the 2 x 2 mesh's Matern32)."""
+    import torch
+    from george_tpu_torch import kernels as k
+    from george_tpu_torch.ops import cov
+
+    return [("stationary_cov phase 29 " + label, torch.float64,
+             cov.instance(leaf, torch.float64)) for label, leaf in (
+                 ("exp_squared d=1", k.ExpSquaredKernel(1.0).spec_node()),
+                 ("matern32 d=1", k.Matern32Kernel(1.0).spec_node()))]
 
 
 def cov_counts():
@@ -2455,7 +2525,8 @@ def run_nuts(phase, log_prob, z0, chees_runs, dense_lp, zd, kernel_ms, dev,
     """Phases 20-22: NUTS and HMC over the main path's log_prob and z0
     (phase 4's), against phase 4's ChEES runs, and NUTS over the dense
     path's log_prob and zd (phase 7's).  Returns the Kalman kernel's
-    launches in the NUTS leg's first run."""
+    launches in the NUTS leg's first run and the dense path's NUTS
+    result."""
     import torch
     from george_tpu_torch.ops import dense, kalman
 
@@ -2536,7 +2607,7 @@ def run_nuts(phase, log_prob, z0, chees_runs, dense_lp, zd, kernel_ms, dev,
           "{6}".format(zd.shape[0], dr[2], res.num_evaluations, div, dr[1],
                        float(res.n_leapfrog.double().mean()), card))
     log("phases 20-22 took {0:.1f} s".format(time.time() - t_run))
-    return nruns[0][2]
+    return nruns[0][2], res
 
 
 def cuda_ms(fn):
@@ -3095,7 +3166,8 @@ def run_hodlr_sampler(phase, dev, card):
 
 def run_smc_config3(phase, dev, card, smc):
     """Phase 26: SMC over config 3's posterior, every target evaluation a
-    launch of ``dense_vg.cu``.  Returns the launches of the HMC run."""
+    launch of ``dense_vg.cu``.  Returns ``{mutation: (launches,
+    particle-mutations a second, seconds, result)}``."""
     import torch
     from george_tpu_torch.ops import dense
     from george_tpu_torch.samplers import run_smc
@@ -3106,23 +3178,12 @@ def run_smc_config3(phase, dev, card, smc):
               SMC_N, SMC_PARTICLES, SMC_MUTATIONS))
     gp, lp, theta0 = smc
     check(lp.engine == "cuda_dense", "engine {0}".format(lp.engine))
-    dim = len(theta0)
-    scale = torch.as_tensor([1.0, 1.0, 0.8, 1.0, 1.0][:dim], device=dev,
-                            dtype=theta0.dtype)
-    const = float(-torch.sum(torch.log(scale)) - 0.5 * dim * np.log(
-        2 * np.pi))
-
-    def log_init(z):
-        d = (z - theta0) / scale
-        return -0.5 * torch.sum(d * d, dim=-1) + const
-
+    log_init, scale = smc_log_init(theta0)
     i_period = next(i for i, nm in enumerate(gp.get_parameter_names())
                     if nm.endswith("log_period"))
     out = {}
     for mutation, seed in (("hmc", 0), ("rw", 1)):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        p0 = theta0 + scale * torch.randn((SMC_PARTICLES, dim), generator=gen,
-                                          device=dev, dtype=theta0.dtype)
+        p0, gen = smc_start(theta0, scale, seed, dev)
         dense.dense_vg.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -3144,7 +3205,7 @@ def run_smc_config3(phase, dev, card, smc):
                   mutation, launches, res.num_evaluations, median,
                   SMC_TRUE_PERIOD, res.num_stages, float(res.acceptance),
                   float(res.log_evidence), elapsed, rate, card))
-        out[mutation] = (launches, rate, elapsed)
+        out[mutation] = (launches, rate, elapsed, res)
     log("phase 26 took {0:.1f} s".format(time.time() - t_run))
     return out
 
@@ -3217,6 +3278,631 @@ def run_advi_checkpoint(phase, dev, card, lp64, theta64, chees):
     os.remove(path)
     log("phase 27 took {0:.1f} s".format(time.time() - t_run))
     return launches, seconds
+
+
+# -- slice 12: the multi-rank layer (phases 28-30) ---------------------------
+
+class _CollectiveClock(object):
+    """Host seconds and calls inside the collectives' transfers (every one
+    goes through ``gather_stack`` or ``all_reduce_sum``): under gloo the
+    staging copies (which wait for the card's queued work) and the
+    exchange, under NCCL the enqueue only.  A context manager: the
+    transfers are wrapped inside it."""
+
+    def __enter__(self):
+        from george_tpu_torch.parallel import collectives
+
+        self.seconds, self.calls = 0.0, 0
+        self.saved = {name: getattr(collectives, name)
+                      for name in ("gather_stack", "all_reduce_sum")}
+        for name, fn in self.saved.items():
+            setattr(collectives, name, self._timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from george_tpu_torch.parallel import collectives
+
+        for name, fn in self.saved.items():
+            setattr(collectives, name, fn)
+
+    def _timed(self, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return timed
+
+    def read(self):
+        return self.seconds, self.calls
+
+
+def timed_once(fn):
+    """``(fn(), seconds)``: one call timed by the port's
+    ``profiling.timeit`` (the card synchronized on its tensor outputs)."""
+    from george_tpu_torch import profiling
+
+    out = []
+
+    def call():
+        out.append(fn())
+        return out[-1]
+
+    seconds = profiling.timeit(call, repeats=1, warmup=0)
+    return out[0], seconds
+
+
+def posterior_stats(res):
+    """Means, Monte Carlo standard errors, max split R-hat, distinct
+    chains and the draws' acceptance, divergences and leapfrogs of a run
+    (on its device)."""
+    import torch
+    from george_tpu_torch.samplers import effective_sample_size, split_rhat
+
+    s = res.samples.double()
+    flat = s.reshape(-1, s.shape[-1])
+    ess = effective_sample_size(s)
+    return dict(
+        shape=tuple(s.shape), finite=bool(torch.all(torch.isfinite(s))),
+        mean=flat.mean(0).cpu().numpy(),
+        se=(flat.std(0) / torch.sqrt(ess)).cpu().numpy(),
+        rhat=float(split_rhat(s).max()), min_ess=float(ess.min()),
+        distinct=int(torch.unique(res.samples.reshape(s.shape[0], -1),
+                                  dim=0).shape[0]),
+        accept=float(res.accept_prob.double().mean()),
+        divergent=float(res.diverging.double().mean()),
+        leapfrogs=float(res.n_leapfrog.double().mean()))
+
+
+def _sharded_mcmc(dev, clock, log_prob, z0, mesh, counter, seed, **opts):
+    """One ``run_mcmc_sharded`` run on this rank: its launches (the count
+    set to 0 just before, read just after), evaluations, pooled step size
+    and mass, wall (``profiling.timeit``) and collective seconds; rank 0
+    adds the gathered posterior's statistics."""
+    import torch
+    from george_tpu_torch.parallel import run_mcmc_sharded
+
+    chain = mesh.axis("chains")
+    z0 = torch.as_tensor(z0, device=dev)
+    counter.launches = 0
+    c0 = clock.read()
+    torch.cuda.synchronize()
+    res, seconds = timed_once(lambda: run_mcmc_sharded(
+        log_prob, None, z0, seed, mesh, **opts))
+    out = dict(engine=log_prob.engine, chains=z0.shape[0] // chain.size,
+               launches=counter.launches, evaluations=res.num_evaluations,
+               step_size=res.step_size.cpu().numpy(),
+               inv_mass=res.inv_mass.cpu().numpy(), seconds=seconds,
+               collective_s=clock.read()[0] - c0[0],
+               collectives=clock.read()[1] - c0[1])
+    if chain.index == 0:
+        out["stats"] = posterior_stats(res)
+    return out
+
+
+def _job_chees(dev, clock, mesh, z0):
+    """Phase 28: the main path's ChEES leg, chains over the ranks."""
+    import torch
+    from george_tpu_torch.ops import kalman
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    x, y, yerr = bench_data(N)
+    gp = main_gp(dev)
+    lp, _ = build_gp_log_prob(gp, x, y, yerr,
+                              log_prior=bench_prior(gp, dev, torch.float32),
+                              device=dev, dtype=torch.float32)
+    return _sharded_mcmc(dev, clock, lp, z0, mesh, kalman.kalman_vg, 1,
+                         algorithm="chees",
+                         num_warmup=WARMUP, num_samples=SAMPLES,
+                         num_leapfrog=MAX_LEAPFROG, block_size=BLOCK,
+                         warmup_block_size=BLOCK)
+
+
+def _job_dense_nuts(dev, clock, mesh, zd):
+    """Phase 28: config #5 under NUTS (phase 22's run), chains over the
+    ranks."""
+    import torch
+    from george_tpu_torch.ops import dense
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    xd, yd, yerrd = config5_data()
+    gp5 = config5_gp(dev)
+    lp, _ = build_gp_log_prob(gp5, xd, yd, yerrd, method="dense",
+                              log_prior=bench_prior(gp5, dev, torch.float32),
+                              device=dev, dtype=torch.float32)
+    return _sharded_mcmc(dev, clock, lp, zd, mesh, dense.dense_vg, 5,
+                         algorithm="nuts",
+                         max_depth=NUTS_DEPTH, num_warmup=DENSE_NUTS_WARMUP,
+                         num_samples=DENSE_NUTS_SAMPLES,
+                         block_size=DENSE_NUTS_SAMPLES,
+                         warmup_block_size=BLOCK)
+
+
+def _device_ms(prof):
+    """Device milliseconds of the CUDA events a profiler recorded (None if
+    it recorded none)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+def _job_data(dev, clock, mesh, trace_dir):
+    """Phase 29: the data-sharded BASELINE model in float64 on each route,
+    every stripe a launch of the covariance kernel: the value and the
+    gradient, each call's launches, times (``profiling.timeit``) and this
+    rank's peak memory; a ``profiling.trace`` of one value+gradient on the
+    replicated route."""
+    import torch
+    from george_tpu_torch import config, profiling
+    from george_tpu_torch.parallel import make_sharded_gp_log_prob_factory
+    from george_tpu_torch.parallel.mesh import shard
+
+    old = config.pallas_covariance
+    config.pallas_covariance = "always"
+    axis = mesh.axis("data")
+    out = {}
+    try:
+        for label, n, worlds in SHARD_CASES:
+            if axis.size not in worlds:
+                continue
+            x, y, yerr = chol16k_data(n)
+            gp = baseline_gp(dev, torch.float64)
+            factory, data = make_sharded_gp_log_prob_factory(gp, x, y, yerr,
+                                                             mesh=mesh)
+            lp = factory(*(shard(torch.as_tensor(d, device=dev), axis)
+                           for d in data))
+            theta = torch.as_tensor(gp.get_parameter_vector(), device=dev,
+                                    dtype=torch.float64)
+
+            def value():
+                with torch.no_grad():
+                    return lp(theta)
+
+            def value_and_grad():
+                th = theta.clone().requires_grad_(True)
+                v = lp(th)
+                return v.detach(), torch.autograd.grad(v, th)[0]
+
+            # One call each, timed with its launches counted.
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            c0 = clock.read()
+            reset_cov_counts()
+            v, value_s = timed_once(value)
+            value_launches = cov_counts()
+            reset_cov_counts()
+            (v2, g), grad_s = timed_once(value_and_grad)
+            grad_launches = cov_counts()
+            c1 = clock.read()
+            row = dict(engine=lp.engine, n_total=data[0].shape[0],
+                       value=float(v), value2=float(v2),
+                       grad=g.cpu().numpy(), value_launches=value_launches,
+                       grad_launches=grad_launches, value_s=value_s,
+                       grad_s=grad_s, collective_s=c1[0] - c0[0],
+                       collectives=c1[1] - c0[1],
+                       peak_bytes=torch.cuda.max_memory_allocated(dev))
+            if label == "replicated":
+                with profiling.trace(trace_dir) as prof:
+                    with profiling.annotate("phase 29 value+gradient"):
+                        value_and_grad()
+                        torch.cuda.synchronize()
+                row["trace_device_ms"] = _device_ms(prof)
+            out[label] = row
+            del lp, factory
+    finally:
+        config.pallas_covariance = old
+    return out
+
+
+def _job_mesh_hmc(dev, clock, mesh):
+    """Phase 29: chains x data HMC on a 2 x 2 mesh (tests/test_parallel.py's
+    test_chains_by_data_hmc at N = MESH_HMC_N)."""
+    import torch
+    import george_tpu_torch as george
+    from george_tpu_torch import config, kernels
+    from george_tpu_torch.parallel import (
+        make_sharded_gp_log_prob_factory, run_mcmc_sharded)
+
+    x, y, yerr = bench_data(MESH_HMC_N)
+    gp = george.GP(1.0 * kernels.Matern32Kernel(1.0), device=dev)
+    factory, data = make_sharded_gp_log_prob_factory(gp, x, y, yerr,
+                                                     mesh=mesh)
+    theta0 = gp.get_parameter_vector()
+    z0 = theta0 + 0.05 * np.random.default_rng(3).standard_normal(
+        (MESH_HMC_CHAINS, len(theta0)))
+    old = config.pallas_covariance
+    config.pallas_covariance = "always"
+    try:
+        reset_cov_counts()
+        c0 = clock.read()
+        res, seconds = timed_once(lambda: run_mcmc_sharded(
+            factory, data, z0, 3, mesh, data_axis="data", algorithm="hmc",
+            num_leapfrog=8, step_size=0.05, num_warmup=20, num_samples=20))
+    finally:
+        config.pallas_covariance = old
+    return dict(engine=factory(*data).engine,
+                finite=bool(torch.all(torch.isfinite(res.samples))),
+                accept=float(res.accept_prob.double().mean()),
+                shape=tuple(res.samples.shape),
+                evaluations=res.num_evaluations, launches=cov_counts(),
+                seconds=seconds, collective_s=clock.read()[0] - c0[0])
+
+
+def smc_log_init(theta0):
+    """Phase 26's initial density around theta0 and its scales."""
+    import torch
+
+    dim = len(theta0)
+    scale = torch.as_tensor([1.0, 1.0, 0.8, 1.0, 1.0][:dim],
+                            device=theta0.device, dtype=theta0.dtype)
+    const = float(-torch.sum(torch.log(scale)) - 0.5 * dim * np.log(
+        2 * np.pi))
+
+    def log_init(z):
+        d = (z - theta0) / scale
+        return -0.5 * torch.sum(d * d, dim=-1) + const
+
+    return log_init, scale
+
+
+def smc_start(theta0, scale, seed, dev):
+    """Phase 26's starting cloud and the generator that drew it."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p0 = theta0 + scale * torch.randn((SMC_PARTICLES, len(theta0)),
+                                      generator=gen, device=dev,
+                                      dtype=theta0.dtype)
+    return p0, gen
+
+
+def _job_smc(dev, clock, mesh):
+    """Phase 30: phase 26's HMC run, the particles' evaluations over the
+    ranks."""
+    import torch
+    from george_tpu_torch.ops import dense
+    from george_tpu_torch.parallel import run_smc_sharded
+
+    gp, lp, theta0 = smc_posterior(dev)
+    log_init, scale = smc_log_init(theta0)
+    p0, gen = smc_start(theta0, scale, 0, dev)
+    dense.dense_vg.launches = 0
+    c0 = clock.read()
+    torch.cuda.synchronize()
+    res, seconds = timed_once(lambda: run_smc_sharded(
+        lp, log_init, p0, gen, mesh, num_mutations=SMC_MUTATIONS,
+        mutation="hmc"))
+    return dict(engine=lp.engine, launches=dense.dense_vg.launches,
+                evaluations=res.num_evaluations, stages=res.num_stages,
+                particles=res.particles.cpu().numpy(),
+                log_evidence=float(res.log_evidence),
+                lambdas=res.lambdas.cpu().numpy(), seconds=seconds,
+                collective_s=clock.read()[0] - c0[0])
+
+
+# Each job and the axis of the mesh it runs on ("2x2": chains x data).
+RANK_JOBS = {"chees": (_job_chees, "chains"),
+             "dense_nuts": (_job_dense_nuts, "chains"),
+             "data": (_job_data, "data"), "mesh_hmc": (_job_mesh_hmc, "2x2"),
+             "smc": (_job_smc, "particles")}
+
+
+def job_mesh(P, axis, dev):
+    """The mesh of a job on the first P ranks of the process group (None
+    on the others).  Every rank calls it: group creation is collective."""
+    import torch.distributed as dist
+    from george_tpu_torch.parallel import chain_data_mesh, chain_mesh
+    from george_tpu_torch.parallel.mesh import Axis, Mesh
+
+    if axis == "2x2":
+        return chain_data_mesh(2, 2, device=dev)
+    if P == dist.get_world_size():
+        return chain_mesh(axis=axis, device=dev)
+    group = dist.new_group(list(range(P)))
+    rank = dist.get_rank()
+    return Mesh([Axis(axis, P, rank, group)], dev) if rank < P else None
+
+
+def _rank_main(rank, world, backend, root, jobs, t_start):
+    """One rank: the process group over ``root``'s rendezvous file, then
+    each job ``(name, P, args)`` on the first P ranks, on the card (every
+    rank on cuda:0); its results and timeline (seconds from ``t_start``)
+    saved."""
+    t_entry = time.time() - t_start
+    sys.path.insert(0, HERE)
+    import datetime
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(root, "rendezvous"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        out = {"timeline": [("entered", t_entry),
+                            ("group ready", time.time() - t_start)]}
+        with _CollectiveClock() as clock:
+            for name, P, args in jobs:
+                fn, axis = RANK_JOBS[name]
+                mesh = job_mesh(P, axis, dev)
+                # Every job starts on all ranks together (the ranks idle
+                # in a P = 2 job would wait inside the next one's first
+                # collective, and count it).
+                dist.barrier()
+                if mesh is None:
+                    continue
+                t0 = time.time()
+                key = "{0} P={1}".format(name, P)
+                out[key] = fn(dev, clock, mesh, *args)
+                out[key + " wall"] = time.time() - t0
+        out["timeline"].append(("jobs done", time.time() - t_start))
+        torch.save(out, os.path.join(root, "rank{0}.pt".format(rank)))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world, backend, jobs):
+    """``jobs`` ([(name, P, args)]) on ``world`` ranks sharing the card (a
+    world of one in this process), each job on the first P; each rank's
+    results.  The kernels are built already (phase 1): the ranks load
+    them.  A failure in any rank fails the phase."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    try:
+        if world == 1:
+            _rank_main(0, 1, backend, root, jobs, t0)
+        else:
+            mp.spawn(_rank_main, args=(world, backend, root, jobs, t0),
+                     nprocs=world, join=True)
+        out = [torch.load(os.path.join(root, "rank{0}.pt".format(r)),
+                          weights_only=False) for r in range(world)]
+    except Exception as exc:
+        raise Failure("{0} ranks over {1}: {2}".format(world, backend, exc))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    walls = []
+    for name, P, _ in jobs:
+        key = "{0} P={1}".format(name, P)
+        walls.append("{0} {1:.1f} s".format(key, max(
+            r[key + " wall"] for r in out[:P])))
+    log("  {0} rank(s) over {1}: {2:.1f} s; the slowest rank's wall by job: "
+        "{3}; rank 0's timeline {4}".format(
+            world, backend, time.time() - t0, ", ".join(walls), ", ".join(
+                "{0} at {1:.1f} s".format(*e) for e in out[0]["timeline"])))
+    return out
+
+
+def check_chain_sharded(tag, ranks, ref, chains, gate_rhat, card):
+    """Phase 28's gates on one sharded run: launches == value+gradient
+    calls at the rank's chain count on every rank, the pooled step size
+    and mass the same bits on every rank, the draws finite, every chain
+    distinct, (for ChEES) split R-hat < 1.01, and the means within 5
+    combined MC standard errors of the single-process run ``ref``."""
+    world = len(ranks)
+    for r, o in enumerate(ranks):
+        check(o["launches"] == o["evaluations"] and
+              o["chains"] == chains // world and o["engine"].startswith(
+                  "cuda_"),
+              "{0}, rank {1}: {2} launches == value+gradient calls {3} at B "
+              "= {4} (engine {5})".format(tag, r, o["launches"],
+                                          o["evaluations"], o["chains"],
+                                          o["engine"]))
+    steps = {o["step_size"].tobytes() for o in ranks}
+    masses = {o["inv_mass"].tobytes() for o in ranks}
+    check(len(steps) == 1 and len(masses) == 1,
+          "{0}: pooled step size {1!r} and mass {2} the same bits on all {3} "
+          "ranks".format(tag, float(ranks[0]["step_size"]),
+                         ranks[0]["inv_mass"], world))
+    st = ranks[0]["stats"]
+    check(st["finite"] and st["distinct"] == chains and
+          st["shape"][0] == chains,
+          "{0}: draws {1} finite, {2} distinct chains of {3}".format(
+              tag, st["shape"], st["distinct"], chains))
+    if gate_rhat:
+        check(st["rhat"] < 1.01, "{0}: max split R-hat {1:.5f} < 1.01".format(
+            tag, st["rhat"]))
+    gap = np.abs(st["mean"] - ref["mean"])
+    bound = 5.0 * np.sqrt(st["se"] ** 2 + ref["se"] ** 2)
+    check(bool(np.all(gap <= bound)),
+          "{0}: means {1} against the single-process run's {2}: gaps {3} "
+          "within 5 combined MC standard errors {4}".format(
+              tag, np.round(st["mean"], 4), np.round(ref["mean"], 4),
+              np.round(gap, 5), np.round(bound, 5)))
+    wall, coll = max((o["seconds"], o["collective_s"]) for o in ranks)
+    share = coll / wall
+    log("  {0}: {1:.2f} s (slowest rank), {2:.2f} s of it in collectives "
+        "({3:.1%}, {4} calls); max split R-hat {5:.5f}, min ESS {6:.1f}, "
+        "acceptance {7:.4f}, divergences {8:.5f}, {9:.2f} leapfrogs a draw, "
+        "step size {10:.6f}; on {11}".format(
+            tag, wall, coll, share, ranks[0]["collectives"], st["rhat"],
+            st["min_ess"], st["accept"], st["divergent"], st["leapfrogs"],
+            float(ranks[0]["step_size"]), card))
+
+
+def check_data_sharded(P, ranks, refs, card):
+    """Phase 29's gates at P ranks: the engine each case takes, the value
+    within rtol 1e-9 and the gradient within rtol 1e-7 of the
+    single-process float64 GP, one forward covariance launch a value and
+    one forward and one VJP a gradient on every rank."""
+    expect = {"dist_chol": ("dist_chol", 16384),
+              "replicated": ("sharded_replicated_chol", 4096),
+              "dist_chol padded": ("dist_chol", 16384)}
+    for label, n, worlds in SHARD_CASES:
+        if P not in worlds:
+            continue
+        ll_ref, g_ref = refs[n]
+        errs = []
+        for r, rank in enumerate(ranks):
+            o = rank[label]
+            check((o["engine"], o["n_total"]) == expect[label],
+                  "P={0} {1} N={2}, rank {3}: engine {4}, N padded to "
+                  "{5}".format(P, label, n, r, o["engine"], o["n_total"]))
+            check(o["value_launches"] == (1, 0) and
+                  o["grad_launches"] == (1, 1),
+                  "P={0} {1} N={2}, rank {3}: covariance launches (forward, "
+                  "VJP) {4} a value, {5} a gradient".format(
+                      P, label, n, r, o["value_launches"],
+                      o["grad_launches"]))
+            v_err = max(abs(o["value"] - ll_ref), abs(o["value2"] - ll_ref))
+            g_err = np.abs(o["grad"] - g_ref)
+            ok = v_err <= 1e-9 * abs(ll_ref) and bool(np.all(
+                g_err <= 1e-7 * np.abs(g_ref) + 1e-7 * np.abs(g_ref).max()))
+            check(ok, "P={0} {1} N={2}, rank {3}: value {4!r} against the "
+                  "single-process GP's {5!r} (rtol 1e-9), gradient {6} "
+                  "against {7} (rtol 1e-7)".format(
+                      P, label, n, r, o["value"], ll_ref, o["grad"], g_ref))
+            errs.append((v_err / abs(ll_ref),
+                         float((g_err / np.abs(g_ref).max()).max())))
+        slow = max(range(P), key=lambda r: ranks[r][label]["grad_s"])
+        o = ranks[slow][label]
+        log("  P={0} {1} N={2}: value {3:.3f} s, value+gradient {4:.3f} s "
+            "(profiling.timeit, slowest rank), {5:.3f} s of them in "
+            "collectives ({6:.1%}, {7} calls); peak memory a rank {8} GiB; "
+            "max rel. error value {9:.2e}, gradient {10:.2e}{11}; on "
+            "{12}".format(
+                P, label, n, o["value_s"], o["grad_s"], o["collective_s"],
+                o["collective_s"] / (o["value_s"] + o["grad_s"]),
+                o["collectives"],
+                ", ".join("{0:.2f}".format(rk[label]["peak_bytes"]
+                                           / 2 ** 30) for rk in ranks),
+                max(e[0] for e in errs), max(e[1] for e in errs),
+                "" if o.get("trace_device_ms") is None else
+                "; one traced value+gradient {0:.2f} ms on the card".format(
+                    o["trace_device_ms"]), card))
+
+
+def run_sharded(phase, dev, card, z0, chees_ref, zd, dense_nuts_ref,
+                smc_ref):
+    """Phases 28-30 over P ranks sharing the card.  Returns the slice's
+    launches per rank for the JSON line."""
+    import torch
+    from george_tpu_torch import config
+
+    t_run = time.time()
+    # The single-process float64 references of phase 29 (the GP API, the
+    # plain covariance route), computed before the ranks start.
+    refs = {}
+    old = config.pallas_covariance
+    config.pallas_covariance = "never"
+    try:
+        for _, n, _ in SHARD_CASES:
+            x, y, yerr = chol16k_data(n)
+            gp = baseline_gp(dev, torch.float64)
+            gp.compute(x, yerr)
+            refs[n] = (float(gp.log_likelihood(y)),
+                       np.asarray(gp.grad_log_likelihood(y)))
+            del gp
+    finally:
+        config.pallas_covariance = old
+    torch.cuda.empty_cache()
+    trace_dir = os.path.join(HERE, "build", "phase29_trace")
+    z0_np = z0.cpu().numpy()
+    zd_np = zd.cpu().numpy()
+
+    phase("28-30: the multi-rank layer, {0} and {1} ranks sharing the card "
+          "over gloo (the first 2 of 4 ranks for P = 2), 1 over "
+          "NCCL".format(*SHARD_WORLDS))
+    ranks = spawn_ranks(4, "gloo", [
+        ("chees", 2, (z0_np,)), ("dense_nuts", 2, (zd_np,)),
+        ("data", 2, (trace_dir,)), ("smc", 2, ()),
+        ("dense_nuts", 4, (zd_np,)), ("data", 4, (trace_dir,)),
+        ("mesh_hmc", 4, ())])
+    one = spawn_ranks(1, "nccl", [("chees", 1, (z0_np,))])
+
+    def results(job, P):
+        key = "{0} P={1}".format(job, P)
+        return [r[key] for r in (one if P == 1 else ranks)[:P]]
+
+    phase("28: chain-sharded sampling")
+    ref = posterior_stats(chees_ref)
+    for tag, P in (("ChEES, main path, P=2 (gloo)", 2),
+                   ("ChEES, main path, P=1 (NCCL)", 1)):
+        check_chain_sharded(tag, results("chees", P), ref, CHAINS, True,
+                            card)
+    ref = posterior_stats(dense_nuts_ref)
+    for P in SHARD_WORLDS:
+        check_chain_sharded("NUTS, config #5, P={0} (gloo)".format(P),
+                            results("dense_nuts", P), ref, DENSE_CHAINS,
+                            False, card)
+
+    phase("29: data-sharded likelihoods (float64)")
+    for P in SHARD_WORLDS:
+        check_data_sharded(P, results("data", P), refs, card)
+    hmc = results("mesh_hmc", 4)
+    for r, o in enumerate(hmc):
+        check(o["engine"] == "sharded_replicated_chol" and o["finite"] and
+              o["accept"] > 0.2 and o["launches"] == (o["evaluations"],
+                                                      o["evaluations"]),
+              "chains x data HMC on a 2 x 2 mesh, N={0}, rank {1}: engine "
+              "{2}, draws {3} finite, mean acceptance {4:.4f} > 0.2, "
+              "covariance launches (forward, VJP) {5} == value+gradient "
+              "calls {6}; {7:.2f} s, {8:.2f} s in collectives; on {9}".format(
+                  MESH_HMC_N, r, o["engine"], o["shape"], o["accept"],
+                  o["launches"], o["evaluations"], o["seconds"],
+                  o["collective_s"], card))
+
+    phase("30: sharded SMC at config 3, P=2")
+    ref_launches, _, ref_s, ref_res = smc_ref
+    p_ref = ref_res.particles.cpu().numpy()
+    smc = results("smc", 2)
+    for r, o in enumerate(smc):
+        same = (o["stages"] == ref_res.num_stages and np.allclose(
+            o["lambdas"], ref_res.lambdas.cpu().numpy(), rtol=1e-10,
+            atol=0.0) and np.allclose(o["particles"], p_ref, rtol=1e-10,
+                                      atol=1e-10 * np.abs(p_ref).max())
+            and abs(o["log_evidence"] - float(ref_res.log_evidence))
+            <= 1e-10 * abs(float(ref_res.log_evidence)))
+        check(same, "SMC P=2, rank {0}: {1} stages, temperatures, particles "
+              "and log Z {2!r} equal phase 26's ({3} stages, log Z {4!r}) at "
+              "rtol 1e-10".format(r, o["stages"], o["log_evidence"],
+                                  ref_res.num_stages,
+                                  float(ref_res.log_evidence)))
+        check(o["engine"] == "cuda_dense" and
+              o["launches"] == o["evaluations"] == ref_launches,
+              "SMC P=2, rank {0}: dense_vg launches {1} == evaluations {2} "
+              "at B = {3} (phase 26: {4} at B = {5})".format(
+                  r, o["launches"], o["evaluations"], SMC_PARTICLES // 2,
+                  ref_launches, SMC_PARTICLES))
+    wall, coll = max((o["seconds"], o["collective_s"]) for o in smc)
+    log("  SMC P=2: {0:.2f} s (phase 26 on one process: {1:.2f} s), {2:.2f} "
+        "s of it in collectives ({3:.1%}); on {4}".format(
+            wall, ref_s, coll, coll / wall, card))
+    log("phases 28-30 took {0:.1f} s".format(time.time() - t_run))
+    def launches(job, P):
+        return [o["launches"] for o in results(job, P)]
+
+    def cov(P, label, i):
+        return [o[label]["value_launches"][i] + o[label]["grad_launches"][i]
+                for o in results("data", P)]
+
+    cases = [(P, label) for P in SHARD_WORLDS
+             for label, _, worlds in SHARD_CASES if P in worlds]
+    return {
+        "kalman_vg": {"phase 28 ChEES P=2": launches("chees", 2),
+                      "phase 28 ChEES P=1 NCCL": launches("chees", 1)},
+        "dense_vg": {"phase 28 NUTS P=2": launches("dense_nuts", 2),
+                     "phase 28 NUTS P=4": launches("dense_nuts", 4),
+                     "phase 30 SMC P=2": launches("smc", 2)},
+        "stationary_cov_fwd": {"phase 29 P={0} {1}".format(P, label):
+                               cov(P, label, 0) for P, label in cases},
+        "stationary_cov_bwd": {"phase 29 P={0} {1}".format(P, label):
+                               cov(P, label, 1) for P, label in cases},
+    }
 
 
 def run(dev, card):
@@ -3315,7 +4001,7 @@ def run(dev, card):
     check(smc[1].engine == "cuda_dense", "SMC path engine is {0}".format(
         smc[1].engine))
     built += instances([("SMC config 3 (phase 26)", smc[1].dense_vg)])
-    built += cov_instances() + mxu_instances()
+    built += cov_instances() + mxu_instances() + sharded_instances()
     built += [("state-space GP (phase 23)", torch.float64,
                example07_spec().instance(torch.float64))]
     keys = {inst.key() for _, _, inst in built}
@@ -3662,8 +4348,9 @@ def run(dev, card):
                                                         mm_lines)
 
     # -- phases 20-22: NUTS and HMC -----------------------------------------
-    nuts_launches = run_nuts(phase, log_prob, z0, [r[0] for r in runs],
-                             dense_lp, zd, ms, dev, card)
+    nuts_launches, dense_nuts = run_nuts(phase, log_prob, z0,
+                                         [r[0] for r in runs], dense_lp, zd,
+                                         ms, dev, card)
     kernels_line[0]["nuts_launches"] = nuts_launches
 
     # -- phase 23: the GP API's state-space solver and the fit ---------------
@@ -3676,6 +4363,10 @@ def run(dev, card):
     advi_launches, _ = run_advi_checkpoint(phase, dev, card, lp64, theta64,
                                            runs[0][0])
     kernels_line[0]["advi_launches"] = advi_launches
+
+    # -- phases 28-30: the multi-rank layer ------------------------------------
+    sharded = run_sharded(phase, dev, card, z0, runs[0][0], zd, dense_nuts,
+                          smc_runs["hmc"])
 
     kernels_line += [{
         "name": "kalman_vg (streaming, N > 32768)",
@@ -3728,7 +4419,66 @@ def run(dev, card):
         "bound_by": mm_by,
         "library_ms": mm_lib,
     }] + ss_lines
+    for entry in kernels_line:
+        if entry["name"] in sharded:
+            entry["sharded_launches_per_rank"] = sharded[entry["name"]]
     return kernels_line
+
+
+def run_alone(dev, card):
+    """Phases 28-30 alone, with what they take from phases 1, 4, 22 and 26:
+    the kernels they launch built, phase 4's ChEES run (seed 1), phase
+    22's NUTS run on the dense path and phase 26's SMC runs.  Returns the
+    slice's launches per rank."""
+    import torch
+    from george_tpu_torch import _build
+    from george_tpu_torch.ops import dense, kalman
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    t_run = time.time()
+
+    def phase(title):
+        log("phase {0} (at {1:.1f} s)".format(title, time.time() - t_run))
+
+    phase("1: the kernels of phases 28-30")
+    f32 = torch.float32
+    x, y, yerr = bench_data(N)
+    gp = main_gp(dev)
+    log_prob, theta0 = build_gp_log_prob(
+        gp, x, y, yerr, log_prior=bench_prior(gp, dev, f32), device=dev,
+        dtype=f32)
+    xd, yd, yerrd = config5_data()
+    gp5 = config5_gp(dev)
+    dense_lp, dense_theta0 = build_gp_log_prob(
+        gp5, xd, yd, yerrd, method="dense",
+        log_prior=bench_prior(gp5, dev, f32), device=dev, dtype=f32)
+    smc = smc_posterior(dev)
+    _build.build_many(
+        [vg.spec.instance(dt) for vg in (log_prob.kalman_vg,
+                                         dense_lp.dense_vg, smc[1].dense_vg)
+         for dt in (f32, torch.float64)]
+        + [inst for _, _, inst in sharded_instances()])
+
+    phase("4: the main path, ChEES over {0} chains, seed 1".format(CHAINS))
+    z0 = theta0 + 0.1 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal((CHAINS, len(theta0))),
+        device=dev, dtype=theta0.dtype)
+    (chees,) = run_chees(log_prob, z0, (1,), kalman.kalman_vg, dev,
+                         num_warmup=WARMUP, num_samples=SAMPLES,
+                         num_leapfrog=MAX_LEAPFROG, block_size=BLOCK,
+                         warmup_block_size=BLOCK)
+    phase("22: NUTS on the dense path over {0} chains".format(DENSE_CHAINS))
+    zd = dense_theta0 + 0.1 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal(
+            (DENSE_CHAINS, len(dense_theta0))), device=dev,
+        dtype=dense_theta0.dtype)
+    (dr,) = run_sampler(dense_lp, zd, (5,), dense.dense_vg, dev, "nuts",
+                        max_depth=NUTS_DEPTH, num_warmup=DENSE_NUTS_WARMUP,
+                        num_samples=DENSE_NUTS_SAMPLES,
+                        block_size=DENSE_NUTS_SAMPLES, warmup_block_size=BLOCK)
+    smc_runs = run_smc_config3(phase, dev, card, smc)
+    return run_sharded(phase, dev, card, z0, chees[0], zd, dr[0],
+                       smc_runs["hmc"])
 
 
 def main():
@@ -3764,15 +4514,17 @@ def main():
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    alone = sys.argv[1:] == ["--phases", "28-30"]
     t0 = time.time()
     try:
-        kernels = run(dev, card)
+        kernels = run_alone(dev, card) if alone else run(dev, card)
     except Failure as exc:
         print("chip_smoke: FAILED: {0}".format(exc), file=sys.stderr)
         return 1
     log("all phases passed in {0:.1f} s".format(time.time() - t0))
     log(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"sharded_launches_per_rank": kernels} if alone
+                     else {"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,11 @@
 """Warmup adaptation: dual-averaging step size + Welford mass matrix.
 
 Stan-style three-phase windows (fast / expanding-slow / fast).  All
-statistics pool across the chain batch, so thousands of chains share one
-step size and mass matrix.  Scalar states are 0-d tensors on the chains'
-device, in their dtype.
+statistics pool across the chain batch — and, when an ``axis_name`` (a
+mesh axis, :class:`george_tpu_torch.parallel.mesh.Axis`) is given, across
+its ranks — so thousands of (possibly sharded) chains share one step size
+and mass matrix.  Scalar states are 0-d tensors on the chains' device, in
+their dtype.
 """
 
 import math
@@ -13,13 +15,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.collectives import pmean, psum
 from .hmc import kinetic_energy, sample_momentum, velocity
 
 __all__ = [
     "DualAveragingState", "da_init", "da_update",
     "WelfordState", "welford_init", "welford_update_batch",
-    "welford_variance", "build_schedule",
-    "find_reasonable_step_size_batched",
+    "welford_merge_across", "welford_variance", "build_schedule",
+    "find_reasonable_step_size", "find_reasonable_step_size_batched",
 ]
 
 
@@ -72,22 +75,53 @@ def welford_init(dim, dense=False, dtype=torch.float64, device=None):
     )
 
 
-def welford_update_batch(state, zs):
-    """Merge a (chains, dim) batch of draws (Chan's parallel update)."""
+def welford_update_batch(state, zs, axis_name=None):
+    """Merge a (chains, dim) batch of draws (Chan's parallel update).
+
+    With ``axis_name``, the batch statistics additionally reduce across the
+    axis's ranks, so sharded chains contribute to one global estimate.
+    """
     n_b = torch.as_tensor(float(zs.shape[0]), dtype=zs.dtype,
                           device=zs.device)
     mean_b = torch.mean(zs, dim=0)
+    if axis_name is not None:
+        n_b = psum(n_b, axis_name)
+        mean_b = pmean(mean_b, axis_name)
     centered = zs - mean_b
     if state.m2.dim() == 2:
         m2_b = centered.T @ centered
     else:
         m2_b = torch.sum(centered * centered, dim=0)
+    if axis_name is not None:
+        m2_b = psum(m2_b, axis_name)
     n = state.count + n_b
     delta = mean_b - state.mean
     mean = state.mean + delta * n_b / torch.clamp(n, min=1.0)
     cross = torch.outer(delta, delta) if state.m2.dim() == 2 \
         else delta * delta
     m2 = state.m2 + m2_b + cross * state.count * n_b / torch.clamp(n, min=1.0)
+    return WelfordState(n, mean, m2)
+
+
+def welford_merge_across(state, axis_name):
+    """Exact merge of per-rank Welford states over a mesh axis.
+
+    Welford merging is associative, so accumulating locally and merging
+    only when the variance is *read* (window boundaries) is mathematically
+    identical to reducing the batch moments every step, at 1/window_len
+    the collectives.  Merged via the sufficient statistics
+    (n, sum z, sum zz^T):  m2_g = sum_d (m2_d + n_d mean_d mean_d^T)
+    - n_g mean_g mean_g^T.
+    """
+    n = psum(state.count, axis_name)
+    s1 = psum(state.count * state.mean, axis_name)
+    mean = s1 / torch.clamp(n, min=1.0)
+    if state.m2.dim() == 2:
+        raw = state.m2 + state.count * torch.outer(state.mean, state.mean)
+        m2 = psum(raw, axis_name) - n * torch.outer(mean, mean)
+    else:
+        raw = state.m2 + state.count * state.mean ** 2
+        m2 = psum(raw, axis_name) - n * mean ** 2
     return WelfordState(n, mean, m2)
 
 
@@ -138,14 +172,50 @@ def build_schedule(num_warmup, init_buffer=75, term_buffer=50, base_window=25):
 
 # -- step size initialization ---------------------------------------------------
 
+def find_reasonable_step_size(batched_vg, state, inv_mass, generator,
+                              step_size=1.0, target=0.5, max_iter=64):
+    """Double/halve the step until one chain's one-step accept probability
+    crosses ``target``.
+
+    :param state: one chain's :class:`HMCState` (z (dim,), scalar logp,
+        grad (dim,)); each probe is one call of ``batched_vg`` on a batch
+        of that one chain.
+    """
+    r0 = sample_momentum(generator, inv_mass, state.z.shape, state.z.dtype)
+    energy0 = -state.logp + kinetic_energy(r0, inv_mass)
+
+    def accept_logprob(eps):
+        r_half = r0 + 0.5 * eps * state.grad
+        z1 = state.z + eps * velocity(r_half, inv_mass)
+        logp1, grad1 = batched_vg(z1[None])
+        r1 = r_half + 0.5 * eps * grad1[0]
+        delta = float(energy0 - (-logp1[0] + kinetic_energy(r1, inv_mass)))
+        return -math.inf if math.isnan(delta) else delta
+
+    log_target = math.log(target)
+    eps = float(step_size)
+    a = accept_logprob(eps)
+    going_up = a > log_target
+    i = 0
+    # The loop's first test re-reads the probe at the initial step.
+    while i < max_iter and (a > log_target if going_up else a < log_target):
+        eps *= 2.0 if going_up else 0.5
+        i += 1
+        a = accept_logprob(eps)
+    # One step back on the way up so the accept prob ends >= target.
+    return eps * 0.5 if going_up else eps
+
+
 def find_reasonable_step_size_batched(batched_vg, states, inv_mass,
                                       generator, step_size=1.0, target=0.5,
-                                      max_iter=64):
+                                      max_iter=64, axis_name=None):
     """Double/halve the step until the batch-mean one-step accept
     probability crosses ``target``.
 
     Every chain is probed with one leapfrog per iteration (one batched
-    value+gradient call), and the decision statistic pools the whole batch.
+    value+gradient call), and the decision statistic pools the whole batch
+    (and the axis's ranks when ``axis_name`` is given, so every rank takes
+    the same decisions and returns the same step).
     """
     r0 = sample_momentum(generator, inv_mass, states.z.shape, states.z.dtype)
     energy0 = -states.logp + kinetic_energy(r0, inv_mass)
@@ -158,8 +228,11 @@ def find_reasonable_step_size_batched(batched_vg, states, inv_mass,
         delta = energy0 - (-logp1 + kinetic_energy(r1, inv_mass))
         accept = torch.where(torch.isnan(delta), torch.zeros_like(delta),
                              torch.exp(torch.clamp(delta, max=0.0)))
+        a = torch.mean(accept)
+        if axis_name is not None:
+            a = pmean(a, axis_name)
         # log(0) = -inf when every probe is rejected, as in the reference.
-        return float(torch.log(torch.mean(accept)))
+        return float(torch.log(a))
 
     log_target = math.log(target)
     eps = float(step_size)

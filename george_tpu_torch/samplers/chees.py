@@ -11,7 +11,8 @@ criterion
 
 Every chain takes the same number of leapfrog steps per iteration, so the
 whole batch advances through one batched value+gradient call per leapfrog
-(the fused Kalman kernel on the state-space path).
+(the fused Kalman kernel on the state-space path).  With an ``axis_name``
+(a mesh axis) the cross-chain means pool over its ranks too.
 """
 
 from typing import NamedTuple
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from ..parallel.collectives import pmean
 from .hmc import HMCState, kinetic_energy, sample_momentum, velocity
 
 __all__ = [
@@ -96,14 +98,24 @@ class ChEESInfo(NamedTuple):
     grad_log_t: torch.Tensor     # scalar ChEES gradient estimate d/d log T
 
 
+def _cross_mean(x, axis_name, dim=0):
+    m = torch.mean(x, dim=dim)
+    if axis_name is not None:
+        m = pmean(m, axis_name)
+    return m
+
+
 def chees_step(generator, states, batched_vg, step_size, inv_mass, traj_time,
-               max_leapfrog=1024, divergence_threshold=1000.0):
+               max_leapfrog=1024, axis_name=None,
+               divergence_threshold=1000.0):
     """One jittered-HMC transition for the WHOLE chain batch.
 
     :param states: batched :class:`HMCState` (leading chains axis).
     :param batched_vg: ``f(zs (B, dim)) -> (logps (B,), grads (B, dim))``.
     :param step_size, traj_time: 0-d tensors; steps = ceil(t / eps), shared
         by all chains, capped at ``max_leapfrog`` (read once per call).
+    :param axis_name: a mesh axis over whose ranks the ChEES statistics
+        pool (chains sharded over it), or None.
     :returns: (new_states, :class:`ChEESInfo`).
     """
     num_chains, dim = states.z.shape
@@ -147,19 +159,23 @@ def chees_step(generator, states, batched_vg, step_size, inv_mass, traj_time,
         & torch.all(torch.isfinite(r1), dim=-1)
     w = torch.where(diverging | ~finite1, torch.zeros_like(accept_prob),
                     accept_prob)
-    w_mean = torch.mean(w)
-    denom = torch.clamp(w_mean, min=1e-10)
     z1_safe = torch.where(finite1[:, None], z1, torch.zeros_like(z1))
     r1_safe = torch.where(finite1[:, None], r1, torch.zeros_like(r1))
-
+    w_mean = torch.mean(w)
     m0 = torch.mean(states.z, dim=0)
-    m1 = torch.mean(w[:, None] * z1_safe, dim=0) / denom
+    m1 = torch.mean(w[:, None] * z1_safe, dim=0)
+    if axis_name is not None:
+        # The three cross-chain means in one reduction over the axis.
+        means = pmean(torch.cat([w_mean[None], m0, m1]), axis_name)
+        w_mean, m0, m1 = means[0], means[1:dim + 1], means[dim + 1:]
+    denom = torch.clamp(w_mean, min=1e-10)
+    m1 = m1 / denom
     v1 = velocity(r1_safe, inv_mass)
     a = torch.sum((z1_safe - m1) ** 2, dim=-1) - torch.sum(
         (states.z - m0) ** 2, dim=-1
     )
     dot = torch.sum((z1_safe - m1) * v1, dim=-1)
-    grad_t = torch.mean(w * a * dot) / denom
+    grad_t = _cross_mean(w * a * dot, axis_name) / denom
     grad_log_t = grad_t * traj_time
     # All-divergent batches give no signal: freeze instead of NaN.
     grad_log_t = torch.where(

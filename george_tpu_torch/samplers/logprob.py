@@ -32,18 +32,21 @@ _STATE_SPACE = ("state_space", "state_space_sequential",
                 "state_space_parallel")
 
 
-def traceable_model_fn(model, x_host, device, dtype):
+def traceable_model_fn(model, x_host, device, dtype, allow_baked=True):
     """Return ``f(params (B, p), x) -> (B, N) or (N,)`` for a mean /
     white-noise model.
 
-    Supported forms: :class:`ConstantModel` (closed form); any model with
-    *no active parameters* (its host value at ``x_host`` baked in); a
-    :class:`CallableModel` whose function takes a torch tensor.
+    Supported forms: :class:`ConstantModel` (closed form, for any number of
+    rows); any model with *no active parameters* (its host value at
+    ``x_host`` baked in; ``allow_baked=True`` only: callers that evaluate
+    the model on other rows, e.g. a rank's shard on the distributed
+    Cholesky path, pass ``allow_baked=False``); a :class:`CallableModel`
+    whose function takes a torch tensor.
     """
     n = len(x_host)
     if isinstance(model, ConstantModel):
-        return lambda params, x: params[:, :1] + x.new_zeros(n)
-    if model.vector_size == 0:
+        return lambda params, x: params[:, :1] + x.new_zeros(x.shape[0])
+    if allow_baked and model.vector_size == 0:
         const = torch.as_tensor(
             np.broadcast_to(model.get_value(x_host), (n,)).copy(),
             device=device,
@@ -53,7 +56,10 @@ def traceable_model_fn(model, x_host, device, dtype):
         return lambda params, x: model.function(x)
     raise TypeError(
         "model {0} has active parameters and no torch form; use a "
-        "ConstantModel or a parameter-free model".format(type(model).__name__)
+        "ConstantModel or a parameter-free model{1}".format(
+            type(model).__name__, "" if allow_baked else
+            " (baked host constants are not usable here: the model is "
+            "evaluated on per-rank data shards)")
     )
 
 

@@ -9,6 +9,12 @@ few batched tensor operations plus one batched value+gradient call per
 leapfrog, split into blocks between which a ``progress`` callback runs.
 Trajectory-persistent NUTS runs its draws in blocks of
 :func:`nuts.nuts_draws_persistent` loops, its stream carried across blocks.
+
+:func:`make_mcmc_core` builds the run; :func:`run_mcmc` runs it on one
+device, :func:`george_tpu_torch.parallel.run_mcmc_sharded` on every rank of
+a chain axis, whose ranks then pool the adaptation: the dual-averaging
+state every ``sync_every`` steps and at window ends, the Welford moments
+when the mass matrix is read, ChEES's statistics every step.
 """
 
 from typing import NamedTuple
@@ -16,12 +22,13 @@ from typing import NamedTuple
 import torch
 
 from .._device import resolve_device
+from ..parallel.collectives import pmean
 from . import adaptation as adapt
 from . import chees
 from .hmc import HMCState, hmc_step
 from .nuts import nuts_draws_persistent, nuts_step
 
-__all__ = ["run_mcmc", "MCMCResult"]
+__all__ = ["run_mcmc", "make_mcmc_core", "MCMCResult"]
 
 
 class MCMCResult(NamedTuple):
@@ -80,12 +87,48 @@ def _autograd_vg(log_prob):
     return vg
 
 
+def _pmean_tree(tree, axis_name):
+    """The mean over the axis of every tensor of a NamedTuple, in one
+    collective."""
+    leaves = [torch.as_tensor(v) for v in tree]
+    flat = torch.cat([v.reshape(-1) for v in leaves])
+    flat = pmean(flat, axis_name)
+    out, at = [], 0
+    for v in leaves:
+        out.append(flat[at:at + v.numel()].reshape(v.shape))
+        at += v.numel()
+    return type(tree)(*out)
+
+
+def _sync_da(da, sync, axis_name):
+    """Pool the dual-averaging state across the axis's ranks at sync points.
+
+    Every DA field is affine in the per-step accept statistics with
+    rank-identical coefficients, so pooling the *state* at any cadence
+    lands on exactly the trajectory that pooling the accept statistic every
+    step produces at those points; between syncs each rank runs on its
+    local accept mean.  ``sync_every=1`` therefore reproduces the pooled
+    stream step for step.
+    """
+    if axis_name is None or not sync:
+        return da
+    return _pmean_tree(da, axis_name)
+
+
 def _mass_window_update(da, welford, inv_mass, states, in_win, win_end,
-                        dim, dense_mass):
-    """Stan's windowed Welford mass adaptation + per-window DA reset."""
+                        dim, dense_mass, axis_name=None):
+    """Stan's windowed Welford mass adaptation + per-window DA reset.
+
+    Pooling across ranks happens only when the variance is read (window
+    ends): Welford accumulates rank-locally and the exact merge
+    (:func:`adaptation.welford_merge_across`) runs at the window end, the
+    same estimate as reducing the moments every step.
+    """
     if in_win:
         welford = adapt.welford_update_batch(welford, states.z)
     if win_end:
+        if axis_name is not None:
+            welford = adapt.welford_merge_across(welford, axis_name)
         inv_mass = adapt.welford_variance(welford)
         z = states.z
         welford = adapt.welford_init(dim, dense=dense_mass, dtype=z.dtype,
@@ -95,16 +138,23 @@ def _mass_window_update(da, welford, inv_mass, states, in_win, win_end,
     return da, welford, inv_mass
 
 
+def _sync_point(idx, win_end, num_warmup, sync_every):
+    """Pool the DA state periodically, and always at window ends and on
+    the last warmup step (so the sampling step size is rank-identical)."""
+    return (idx + 1) % sync_every == 0 or win_end or idx == num_warmup - 1
+
+
 def _build_pieces(vg, algorithm, dim, target_accept, max_depth,
                   num_leapfrog, dense_mass, adapt_mass, num_warmup,
-                  persistent):
+                  persistent, axis_name=None, sync_every=8):
     """The building blocks of ``algorithm``: ChEES's from
     :func:`_build_chees_pieces`; NUTS or fixed-length HMC here, per-chain
     trajectories with every leapfrog one batched value+gradient call for
     all chains."""
     if algorithm == "chees":
         return _build_chees_pieces(vg, dim, target_accept, num_leapfrog,
-                                   dense_mass, adapt_mass, num_warmup)
+                                   dense_mass, adapt_mass, num_warmup,
+                                   axis_name, sync_every)
     if algorithm == "nuts":
         def kernel(states, generator, eps, inv_mass):
             return nuts_step(generator, states, vg, eps, inv_mass,
@@ -122,7 +172,7 @@ def _build_pieces(vg, algorithm, dim, target_accept, max_depth,
 
     def init_step_size(states, inv_mass, generator):
         return adapt.find_reasonable_step_size_batched(
-            vg, states, inv_mass, generator
+            vg, states, inv_mass, generator, axis_name=axis_name
         )
 
     def warm_step(carry, in_win, win_end, idx, generator):
@@ -131,10 +181,12 @@ def _build_pieces(vg, algorithm, dim, target_accept, max_depth,
                               inv_mass)
         accept = torch.mean(info.accept_prob)
         da = adapt.da_update(da, accept, target=target_accept)
+        da = _sync_da(da, _sync_point(idx, win_end, num_warmup, sync_every),
+                      axis_name)
         if adapt_mass:
             da, welford, inv_mass = _mass_window_update(
                 da, welford, inv_mass, states, in_win, win_end, dim,
-                dense_mass,
+                dense_mass, axis_name,
             )
         return (states, da, welford, inv_mass, extra), accept
 
@@ -153,7 +205,8 @@ def _build_pieces(vg, algorithm, dim, target_accept, max_depth,
 
 
 def _build_chees_pieces(vg, dim, target_accept, max_leapfrog, dense_mass,
-                        adapt_mass, num_warmup):
+                        adapt_mass, num_warmup, axis_name=None,
+                        sync_every=8):
     """ChEES-HMC: one shared jittered trajectory for the whole batch."""
 
     def chain_init(z):
@@ -162,7 +215,7 @@ def _build_chees_pieces(vg, dim, target_accept, max_leapfrog, dense_mass,
 
     def init_step_size(states, inv_mass, generator):
         return adapt.find_reasonable_step_size_batched(
-            vg, states, inv_mass, generator
+            vg, states, inv_mass, generator, axis_name=axis_name
         )
 
     def warm_step(carry, in_win, win_end, idx, generator):
@@ -173,17 +226,19 @@ def _build_chees_pieces(vg, dim, target_accept, max_leapfrog, dense_mass,
         t = u * torch.exp(traj.log_t)
         states, info = chees.chees_step(
             generator, states, vg, eps, inv_mass, t,
-            max_leapfrog=max_leapfrog,
+            max_leapfrog=max_leapfrog, axis_name=axis_name,
         )
         accept = torch.mean(info.accept_prob)
         da = adapt.da_update(da, accept, target=target_accept)
+        da = _sync_da(da, _sync_point(idx, win_end, num_warmup, sync_every),
+                      axis_name)
         traj = chees.traj_update(
             traj, info.grad_log_t, torch.exp(da.log_step), max_leapfrog
         )
         if adapt_mass:
             da, welford, inv_mass = _mass_window_update(
                 da, welford, inv_mass, states, in_win, win_end, dim,
-                dense_mass,
+                dense_mass, axis_name,
             )
         return (states, da, welford, inv_mass, traj), accept
 
@@ -193,7 +248,7 @@ def _build_chees_pieces(vg, dim, target_accept, max_leapfrog, dense_mass,
         t = u * torch.exp(traj.log_t_avg)
         states, info = chees.chees_step(
             generator, states, vg, eps, inv_mass, t,
-            max_leapfrog=max_leapfrog,
+            max_leapfrog=max_leapfrog, axis_name=axis_name,
         )
         return states, info
 
@@ -213,7 +268,7 @@ def _default_target(algorithm, target_accept):
 
 def _run_blocked(pieces, z0, generator, num_warmup, num_samples, block_size,
                  step_size, dense_mass, progress=None,
-                 warmup_block_size=None):
+                 warmup_block_size=None, axis_name=None):
     """Host-orchestrated execution in blocks (progress between blocks)."""
     num_chains, dim = z0.shape
     dtype, device = z0.dtype, z0.device
@@ -251,6 +306,13 @@ def _run_blocked(pieces, z0, generator, num_warmup, num_samples, block_size,
             progress("warmup", stop, num_warmup)
     states, da, _, inv_mass, extra = carry
     eps = torch.exp(da.log_step_avg) if num_warmup > 0 else eps0
+    if axis_name is not None and num_warmup > 0:
+        # One final pooling (numerically a no-op: the last warmup step
+        # forced a DA sync) makes the sampling step size and any algorithm
+        # state rank-identical.
+        eps = pmean(eps, axis_name)
+        if len(extra):
+            extra = _pmean_tree(extra, axis_name)
 
     block = block_size or max(num_samples, 1)
     chunks = []
@@ -297,6 +359,49 @@ def _run_blocked(pieces, z0, generator, num_warmup, num_samples, block_size,
     )
 
 
+def make_mcmc_core(log_prob, num_chains, dim, dtype, num_warmup=500,
+                   num_samples=500, algorithm="nuts", target_accept=None,
+                   max_depth=10, num_leapfrog=32, dense_mass=False,
+                   step_size=None, axis_name=None, adapt_mass=True,
+                   sync_every=8, persistent=True, block_size=None,
+                   progress=None, warmup_block_size=None):
+    """Build the run ``core(z0, generator) -> MCMCResult``.
+
+    :func:`run_mcmc` calls it on one device;
+    :func:`george_tpu_torch.parallel.run_mcmc_sharded` calls it on every
+    rank of a chain axis with this rank's chains and ``axis_name`` that
+    axis, so adaptation pools across the ranks (the dual-averaging state
+    every ``sync_every`` warmup steps and at window ends, the Welford
+    moments at window ends, the step-size probe and ChEES's statistics at
+    every call) and the step size, mass matrix and ChEES trajectory are the
+    same bits on every rank.  The other arguments are :func:`run_mcmc`'s.
+    """
+    if algorithm not in ("nuts", "hmc", "chees"):
+        raise ValueError("unknown algorithm '{0}'".format(algorithm))
+    target = _default_target(algorithm, target_accept)
+
+    def core(z0, generator):
+        if tuple(z0.shape) != (num_chains, dim) or z0.dtype != dtype:
+            raise ValueError("core built for ({0}, {1}) {2} positions; got "
+                             "{3} {4}".format(num_chains, dim, dtype,
+                                              tuple(z0.shape), z0.dtype))
+        vg = _CountedVG(getattr(log_prob, "batched_value_and_grad", None)
+                        or _autograd_vg(log_prob))
+        pieces = _build_pieces(
+            vg, algorithm, dim, target, max_depth, num_leapfrog, dense_mass,
+            adapt_mass, num_warmup, persistent, axis_name, sync_every,
+        )
+        with torch.no_grad():
+            res = _run_blocked(
+                pieces, z0, generator, num_warmup, num_samples, block_size,
+                step_size, dense_mass, progress=progress,
+                warmup_block_size=warmup_block_size, axis_name=axis_name,
+            )
+        return res._replace(num_evaluations=vg.calls)
+
+    return core
+
+
 def run_mcmc(log_prob, z0, key, num_warmup=500, num_samples=500,
              algorithm="nuts", target_accept=None, max_depth=10,
              num_leapfrog=32, dense_mass=False, step_size=None,
@@ -331,34 +436,35 @@ def run_mcmc(log_prob, z0, key, num_warmup=500, num_samples=500,
     :returns: :class:`MCMCResult` with per-chain draws and diagnostics;
         ``n_leapfrog`` is each chain's own count and ``num_evaluations``
         every batched value+gradient call of the run.
+
+    For chains sharded over several ranks use
+    :func:`george_tpu_torch.parallel.run_mcmc_sharded`.
     """
     device = resolve_device(device)
-    if algorithm not in ("nuts", "hmc", "chees"):
-        raise ValueError("unknown algorithm '{0}'".format(algorithm))
     z0 = torch.as_tensor(z0, device=device)
     if z0.dim() != 2:
         raise ValueError("z0 must be (chains, dim)")
     num_chains, dim = z0.shape
-    if isinstance(key, torch.Generator):
-        generator = key
-        if torch.device(generator.device).type != device.type:
-            raise ValueError("generator is on {0}, the run on {1}".format(
-                generator.device, device))
-    else:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(int(key))
-
-    vg = _CountedVG(getattr(log_prob, "batched_value_and_grad", None)
-                    or _autograd_vg(log_prob))
-    pieces = _build_pieces(
-        vg, algorithm, dim, _default_target(algorithm, target_accept),
-        max_depth, num_leapfrog, dense_mass, adapt_mass, num_warmup,
-        persistent,
+    core = make_mcmc_core(
+        log_prob, num_chains, dim, z0.dtype, num_warmup=num_warmup,
+        num_samples=num_samples, algorithm=algorithm,
+        target_accept=target_accept, max_depth=max_depth,
+        num_leapfrog=num_leapfrog, dense_mass=dense_mass,
+        step_size=step_size, adapt_mass=adapt_mass, persistent=persistent,
+        block_size=block_size, progress=progress,
+        warmup_block_size=warmup_block_size,
     )
-    with torch.no_grad():
-        res = _run_blocked(
-            pieces, z0, generator, num_warmup, num_samples, block_size,
-            step_size, dense_mass, progress=progress,
-            warmup_block_size=warmup_block_size,
-        )
-    return res._replace(num_evaluations=vg.calls)
+    return core(z0, _generator(key, device))
+
+
+def _generator(key, device):
+    """``key`` (an int seed or a ``torch.Generator`` on ``device``) as a
+    generator."""
+    if isinstance(key, torch.Generator):
+        if torch.device(key.device).type != device.type:
+            raise ValueError("generator is on {0}, the run on {1}".format(
+                key.device, device))
+        return key
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(key))
+    return generator

@@ -13,6 +13,11 @@ a fused kernel) where it has one, and everything else stays on the device
 but one host sync a stage (the loop's condition).  Random numbers come
 from a *stream* (:class:`GeneratorStream`, or any object with its
 ``stage_draws``), drawn a stage at a time.
+
+With ``axis_name`` (a mesh axis) the cloud stays replicated on every rank
+and the density evaluations shard: each rank evaluates its slice of the
+particles and the results are gathered back, so temperatures, resampling
+and the random stream are those of the run on one device.
 """
 
 from typing import NamedTuple
@@ -22,6 +27,8 @@ import math
 import torch
 
 from .._device import resolve_device
+from ..parallel.collectives import all_gather, pmax, pmean
+from ..parallel.mesh import shard
 from .mcmc import _autograd_vg, _CountedVG
 
 __all__ = ["run_smc", "SMCResult", "GeneratorStream"]
@@ -103,13 +110,13 @@ def run_smc(log_prob, log_init_prob, particles0, key, num_mutations=5,
         ``num_leapfrog`` leapfrogs a mutation and the cloud covariance as
         the inverse mass matrix (so the dimensionless ``hmc_step_scale``
         transfers across problems).
-    :param axis_name: the sharded path waits for the port of
-        ``parallel/``; only ``None`` is accepted.
+    :param axis_name: a mesh axis (:class:`george_tpu_torch.parallel.mesh.
+        Axis`) over whose ranks the evaluations shard (each rank evaluates
+        its contiguous slice of the particles; their number must divide
+        over the axis); every rank then returns the same result, and
+        ``num_evaluations`` counts this rank's calls.
     :param device: where the run happens (default: the CUDA card).
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "run_smc: the sharded path (axis_name) is not ported yet")
     if mutation not in ("rw", "hmc"):
         raise ValueError("unknown mutation '{0}'".format(mutation))
     device = resolve_device(device)
@@ -118,27 +125,50 @@ def run_smc(log_prob, log_init_prob, particles0, key, num_mutations=5,
     dtype = thetas.dtype
     stream = _stream(key, device)
 
+    if axis_name is not None and n % axis_name.size:
+        raise ValueError("num_particles must divide the particle axis")
+
+    def distributed(vf):
+        """``vf`` on this rank's slice of the particles, its outputs
+        gathered back in one collective (the identity without an axis)."""
+        if axis_name is None:
+            return vf
+
+        def sharded(z, *rest):
+            out = vf(shard(z, axis_name), *rest)
+            cols = [a.reshape(a.shape[0], -1) for a in out]
+            full = all_gather(torch.cat(cols, dim=1), axis_name)
+            parts = torch.split(full, [c.shape[1] for c in cols], dim=1)
+            return tuple(p.reshape((full.shape[0],) + a.shape[1:])
+                         for p, a in zip(parts, out))
+
+        return sharded
+
     fused = getattr(log_prob, "batched_value_and_grad", None)
-    target_vg = _CountedVG(fused or _autograd_vg(log_prob))
+    counted = _CountedVG(fused or _autograd_vg(log_prob))
     init_vg = getattr(log_init_prob, "batched_value_and_grad", None) \
         or _autograd_vg(log_init_prob)
     neg_inf = torch.tensor(-math.inf, dtype=dtype, device=device)
 
     def target_value(z):
         if fused is not None:
-            return target_vg(z)[0]
-        target_vg.calls += 1
+            return counted(z)[0]
+        counted.calls += 1
         return log_prob(z)
+
+    @distributed
+    def densities(z):
+        return target_value(z), log_init_prob(z)
 
     def components(z):
         """(log target, log init) with NaNs mapped to -inf (rejection)."""
-        lt = target_value(z)
-        li = log_init_prob(z)
+        lt, li = densities(z)
         return (torch.where(torch.isnan(lt), neg_inf, lt),
                 torch.where(torch.isnan(li), neg_inf, li))
 
+    @distributed
     def tempered_vg(z, lam):
-        lt, gt = target_vg(z)
+        lt, gt = counted(z)
         li, gi = init_vg(z)
         return (lam * lt + (1.0 - lam) * li, lt, li,
                 lam * gt + (1.0 - lam) * gi)
@@ -267,8 +297,15 @@ def run_smc(log_prob, log_init_prob, particles0, key, num_mutations=5,
             lam = new_lam
             lambdas.append(lam)
             stage += 1
+    if axis_name is not None:
+        # Every rank holds the same result (the same stream, the same
+        # gathered evaluations); the pooling reduces it over the axis as
+        # the JAX package's does.
+        thetas, lt, logz, accept = (pmean(v, axis_name)
+                                    for v in (thetas, lt, logz, accept))
+        stage = int(pmax(torch.tensor(stage, device=device), axis_name))
     return SMCResult(
         particles=thetas, log_prob=lt, log_evidence=logz, num_stages=stage,
         acceptance=accept,
         lambdas=torch.stack(lambdas) if lambdas else lam.new_zeros(0),
-        num_evaluations=target_vg.calls)
+        num_evaluations=counted.calls)

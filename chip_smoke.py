@@ -4,6 +4,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 28-30   # the multi-rank layer alone
+    python3 chip_smoke.py --phases 31      # the examples alone
 
 The paths, each through the entry points a user calls, each over
 hand-written CUDA kernels but HODLR's:
@@ -57,7 +58,12 @@ hand-written CUDA kernels but HODLR's:
   with its particles' evaluations sharded (``run_smc_sharded``).  The
   script needs one card: 2 or 4 ranks share it over a gloo process group
   (and one rank over NCCL), each rank on its own chains, data rows or
-  particles, over the same kernels.
+  particles, over the same kernels;
+* the examples (``examples_torch/``, the JAX package's ``examples/`` in
+  the port's idiom), each through its ``main``: the GP API (01, 03, 04,
+  05), NUTS and ChEES on the state-space route over the Kalman kernel (02),
+  SMC over the dense kernel (06), a mean model through the ``torch_value``
+  hook on the plain dense route (08) and NUTS over the dense kernel (09).
 
 Phases (any failure exits non-zero):
 
@@ -230,6 +236,22 @@ Phases (any failure exits non-zero):
     NCCL rank this process; the kernels are built before the ranks start,
     which only load them.  Each phase prints the share of its wall spent
     in collectives.
+31. the examples on the card (``EXAMPLE_SIZES``; 07 is phase 23's), each
+    timed with its kernel launches: 01, 03, 04 and 05 (float64) against
+    their runs with ``device="cpu"`` at rtol 1e-9 (the printed
+    log-likelihoods, band width, NLLs, rms errors, gradients and kernel
+    values), 01's L-BFGS one ``dense_vg.cu`` launch an evaluation, 04's
+    analytic gradient within 1e-5 of its finite difference; 02 (64 chains,
+    60 + 60) ``kalman_vg.cu`` launches equal to its NUTS and ChEES
+    gradient calls, the two posteriors' means within 5 combined MC standard
+    errors; 06 (2000 particles) ``dense_vg.cu`` launches equal to the
+    evaluations, the period's median within 0.15 of 2.3; 08 (16 chains,
+    80 + 80) its densities through the ``torch_value`` hook (dense and
+    state-space routes) equal to the CPU's at rtol 1e-10, no hand kernel,
+    the GP model's location (its split R-hat under 1.1) within 2 sd of the
+    truth and the white-noise model's further from it; 09 (512
+    chains, 150 + 150) ``dense_vg.cu`` launches equal to the calls, split
+    R-hat under 1.1.
 
 The second-to-last line of standard output is a JSON object describing each
 kernel of the paths; the last is ``{"ok": true, "device": {...}}``.  Without
@@ -462,6 +484,26 @@ SHARD_CASES = (("dist_chol", 16384, (2, 4)), ("replicated", 4096, (2, 4)),
 MESH_HMC_N = 1024
 MESH_HMC_CHAINS = 2
 SHARD_TIMEOUT_S = 600
+# Phase 31: examples_torch/ (the JAX package's examples/ 01-09 in the
+# port's idiom) through their main() on the card, 07 excepted (phase 23
+# runs its model).  The sampler examples at reduced sizes, for the
+# script's time: (chains, warmup = draws) against the examples' (64, 400)
+# for 02, (128, 500) for 08 and (512, 200) for 09; 06 at its own 2000
+# particles.  08's plain dense density is host-bound (~10 ms a call on the
+# card): 80 warmup iterations are the fewest at which its GP model's
+# location converged in CPU runs (50 left a split R-hat of 4.3 on the
+# card), 16 chains keep its lockstep trees short.  The GP-API examples
+# (01, 03, 04, 05) also run with device="cpu", their printed numbers held
+# to the card's at EXAMPLE_RTOL.
+EXAMPLE_SIZES = {"01": {}, "02": dict(chains=64, steps=60), "03": {},
+                 "04": {}, "05": {}, "06": {},
+                 "08": dict(chains=16, steps=80),
+                 "09": dict(chains=512, steps=150)}
+EXAMPLE_RTOL = 1e-9
+# 08's custom-model hook: the card's float64 density against the CPU's at
+# theta0 and EXAMPLE_HOOK_POINTS perturbed points.
+EXAMPLE_HOOK_RTOL = 1e-10
+EXAMPLE_HOOK_POINTS = 4
 
 
 def log(*args):
@@ -2388,15 +2430,20 @@ def run_fidelity(dev, card):
     return launches
 
 
-def load_tool(name):
-    """A script of tools/ as a module."""
+def load_file(path, name):
+    """A script of the checkout as a module."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "tool_" + name, os.path.join(HERE, "tools", name + ".py"))
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_tool(name):
+    """A script of tools/ as a module."""
+    return load_file(os.path.join(HERE, "tools", name + ".py"),
+                     "tool_" + name)
 
 
 def run_batched_mm(card):
@@ -3905,6 +3952,201 @@ def run_sharded(phase, dev, card, z0, chees_ref, zd, dense_nuts_ref,
     }
 
 
+# -- phase 31: the examples ---------------------------------------------------
+
+
+def load_example(number):
+    """``examples_torch/<number>_*.py`` as a module."""
+    import glob
+
+    path, = glob.glob(os.path.join(HERE, "examples_torch",
+                                   number + "_*.py"))
+    return load_file(path, "example_" + number)
+
+
+def _counters():
+    from george_tpu_torch.ops import batched_mm, cov, dense, dense_mxu, kalman
+
+    return {"kalman_vg": kalman.kalman_vg, "dense_vg": dense.dense_vg,
+            "stationary_cov_fwd": cov.stationary_cov_fwd,
+            "stationary_cov_bwd": cov.stationary_cov_bwd,
+            "dense_spine": dense_mxu.spine,
+            "batched_mmT": batched_mm.batched_mmT}
+
+
+def example_instances(dev):
+    """The instantiation phase 31 launches that no earlier phase builds:
+    example 01's dense tree (``ExpSquaredKernel`` under a constant, mean
+    and white noise frozen) in float64.  Examples 02, 06 and 09 run the
+    float64 instances of the main path, config 3 and config #5."""
+    import torch
+    import george_tpu_torch as george
+    from george_tpu_torch import kernels
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    x = np.linspace(0.0, 10.0, 15)
+    gp = george.GP(1.0 * kernels.ExpSquaredKernel(0.5), device=dev)
+    lp, _ = build_gp_log_prob(gp, x, np.sin(x), 0.2, device=dev)
+    return [("example 01 (phase 31)", torch.float64,
+             lp.dense_vg.spec.instance(torch.float64))]
+
+
+def check_against_cpu(number, mod, out, keys, sizes):
+    """A GP-API example's printed numbers on the card against its run with
+    device="cpu" (the float64 plain versions) at the same sizes."""
+    ref = mod.main(device="cpu", **sizes)
+    errs = {k: max_rel(out[k], ref[k]) for k in keys}
+    check(all(e <= EXAMPLE_RTOL for e in errs.values()),
+          "example {0}: the card's numbers equal the CPU's within rtol {1} "
+          "(relative errors {2})".format(
+              number, EXAMPLE_RTOL,
+              ", ".join("{0} {1:.2e}".format(k, e) for k, e in errs.items())))
+
+
+def check_example_hook(mod, dev):
+    """Example 08's densities (the mean model through ``torch_value``) on
+    the card against the CPU's, float64: values within EXAMPLE_HOOK_RTOL
+    relative, each point's gradient within it of its largest component."""
+    import torch
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    t, y, yerr = mod.generate_data(mod.TRUTH, 50, device=dev)
+    card_models = mod.make_models(y, device=dev)
+    cpu_models = mod.make_models(y, device="cpu")
+    rng = np.random.default_rng(31)
+    for label, g_card, g_cpu, methods in (
+            ("white-noise model", card_models[0], cpu_models[0],
+             ("dense",)),
+            ("correlated-noise model", card_models[1], cpu_models[1],
+             ("dense", "auto"))):
+        for method in methods:
+            vals = []
+            for g, device in ((g_card, dev), (g_cpu, "cpu")):
+                lp, theta0 = build_gp_log_prob(g, t, y, yerr, method=method,
+                                               device=device)
+                if not vals:
+                    pts = theta0.cpu().numpy()[None] + 0.1 * np.vstack([
+                        np.zeros((1, len(theta0))), rng.standard_normal(
+                            (EXAMPLE_HOOK_POINTS, len(theta0)))])
+                th = torch.as_tensor(pts, device=theta0.device) \
+                    .requires_grad_(True)
+                v = lp(th)
+                grad, = torch.autograd.grad(v.sum(), th)
+                vals.append((lp.engine, v.detach().cpu().numpy(),
+                             grad.cpu().numpy()))
+            (engine, v_c, g_c), (_, v_h, g_h) = vals
+            e_v = float(np.max(np.abs(v_c - v_h) / np.abs(v_h)))
+            e_g = float(np.max(np.abs(g_c - g_h).max(axis=1)
+                               / np.abs(g_h).max(axis=1)))
+            check(bool(np.all(np.isfinite(v_c))) and
+                  e_v <= EXAMPLE_HOOK_RTOL and e_g <= EXAMPLE_HOOK_RTOL,
+                  "example 08 {0}, method {1!r} (engine {2}): value and "
+                  "gradient through torch_value on the card against the "
+                  "CPU's at {3} points, relative errors {4:.2e} and {5:.2e} "
+                  "(<= {6})".format(label, method, engine, len(pts), e_v,
+                                    e_g, EXAMPLE_HOOK_RTOL))
+
+
+def run_examples(phase, dev, card):
+    """Phase 31: examples_torch/ 01-06, 08 and 09 through their main() on
+    the card, each timed with its kernel launches, under the gates of the
+    module docstring.  Returns each kernel's launches over the phase."""
+    import torch
+
+    t_run = time.time()
+    phase("31: the examples (examples_torch/ 01-06, 08 and 09; 07 is "
+          "phase 23's)")
+    counters = _counters()
+    total = {}
+    for number, sizes in EXAMPLE_SIZES.items():
+        mod = load_example(number)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = mod.main(device=dev, **sizes)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        counts = {k: c.launches for k, c in counters.items() if c.launches}
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        log("  example {0} at {1}: {2:.2f} s, kernel launches {3}; on "
+            "{4}".format(number, sizes or "its own sizes", seconds,
+                         counts or "none", card))
+        if number == "01":
+            check(counts == {"dense_vg": out["evaluations"]},
+                  "example 01: optimize.minimize's {0} batched evaluations, "
+                  "one dense_vg.cu launch each at B = 1, and no other "
+                  "launch".format(out["evaluations"]))
+            check_against_cpu(number, mod, out,
+                              ("ll", "band", "scipy_fun", "fun"), sizes)
+        elif number == "02":
+            calls = out["nuts"].num_evaluations + out["chees"].num_evaluations
+            check(out["engine"] == "cuda_kalman" and
+                  counts == {"kalman_vg": calls},
+                  "example 02: engine {0}, kalman_vg.cu launches {1} == "
+                  "value+gradient calls {2} (NUTS {3}, ChEES {4})".format(
+                      out["engine"], counts.get("kalman_vg", 0), calls,
+                      out["nuts"].num_evaluations,
+                      out["chees"].num_evaluations))
+            posteriors_agree(out["nuts"], out["chees"],
+                             "example 02 NUTS against ChEES", stds=False)
+        elif number in ("03", "04", "05"):
+            keys = {"03": ("ll", "rms_trend", "rms_seasonal"),
+                    "04": ("grad_mu", "fd", "t", "mu"),
+                    "05": ("K", "gradient", "x1_gradient")}[number]
+            check_against_cpu(number, mod, out, keys, sizes)
+            if number == "04":
+                check(abs(out["grad_mu"] - out["fd"]) < 1e-5,
+                      "example 04: analytic d mu/dt {0!r} against finite "
+                      "difference {1!r} within 1e-5".format(out["grad_mu"],
+                                                            out["fd"]))
+        elif number == "06":
+            res = out["result"]
+            check(out["engine"] == "cuda_dense" and
+                  counts == {"dense_vg": res.num_evaluations} and
+                  abs(out["median"] - out["true_period"]) < 0.15,
+                  "example 06: engine {0}, dense_vg.cu launches {1} == "
+                  "target evaluations {2}, period median {3:.4f} within "
+                  "0.15 of {4}".format(out["engine"],
+                                       counts.get("dense_vg", 0),
+                                       res.num_evaluations, out["median"],
+                                       out["true_period"]))
+        elif number == "08":
+            (m_w, s_w), (m_g, s_g) = out["location_white"], out["location_gp"]
+            truth = mod.TRUTH["location"]
+            rhat_loc = out["location_gp_rhat"]
+            check(not counts and rhat_loc < 1.1 and
+                  bool(torch.all(torch.isfinite(out["corr_result"].samples)))
+                  and bool(torch.all(torch.isfinite(
+                      out["white_result"].samples))) and
+                  abs(m_g - truth) < 2 * s_g and
+                  abs(m_w - truth) > abs(m_g - truth),
+                  "example 08: engines {0}, no hand kernel; location: the "
+                  "GP model's {1:+.4f} +/- {2:.4f} (split R-hat {6:.4f} < "
+                  "1.1) within 2 sd of the truth {3:+.3f}, the white-noise "
+                  "model's {4:+.4f} +/- {5:.4f} further from it; {7} and "
+                  "{8} value+gradient calls".format(
+                      out["engines"], m_g, s_g, truth, m_w, s_w, rhat_loc,
+                      out["white_result"].num_evaluations,
+                      out["corr_result"].num_evaluations))
+            check_example_hook(mod, dev)
+        elif number == "09":
+            res = out["result"]
+            rhat = float(torch.max(out["stats"]["rhat"]))
+            check(out["engine"] == "cuda_dense" and
+                  counts == {"dense_vg": res.num_evaluations} and
+                  rhat < 1.1 and
+                  bool(torch.all(torch.isfinite(res.samples))),
+                  "example 09: engine {0}, dense_vg.cu launches {1} == "
+                  "value+gradient calls {2}, max split R-hat {3:.4f} < "
+                  "1.1".format(out["engine"], counts.get("dense_vg", 0),
+                               res.num_evaluations, rhat))
+    log("phase 31 took {0:.1f} s; launches {1}; on {2}".format(
+        time.time() - t_run, total, card))
+    return total
+
+
 def run(dev, card):
     import torch
     import george_tpu_torch as george
@@ -4004,6 +4246,7 @@ def run(dev, card):
     built += cov_instances() + mxu_instances() + sharded_instances()
     built += [("state-space GP (phase 23)", torch.float64,
                example07_spec().instance(torch.float64))]
+    built += example_instances(dev)
     keys = {inst.key() for _, _, inst in built}
     zoo_built = [b for b in instances([("kalman zoo " + name, v)
                                        for name, (_, v) in zoo_vgs.items()])
@@ -4368,6 +4611,10 @@ def run(dev, card):
     sharded = run_sharded(phase, dev, card, z0, runs[0][0], zd, dense_nuts,
                           smc_runs["hmc"])
 
+    # -- phase 31: the examples ------------------------------------------------
+    examples = run_examples(phase, dev, card)
+    kernels_line[0]["examples_launches"] = examples.get("kalman_vg", 0)
+
     kernels_line += [{
         "name": "kalman_vg (streaming, N > 32768)",
         "route": "cuda",
@@ -4387,6 +4634,7 @@ def run(dev, card):
         "replaces": "george_tpu/ops/pallas_dense.py:420",
         "launches": dense_launches,
         "smc_launches": smc_runs["hmc"][0],
+        "examples_launches": examples.get("dense_vg", 0),
         "max_abs_err": dense_err,
         "ms": d_ms,
         "plain_ms": d_plain,
@@ -4481,6 +4729,30 @@ def run_alone(dev, card):
                        smc_runs["hmc"])
 
 
+def run_examples_alone(dev, card):
+    """Phase 31 alone, with the float64 instances it launches built first
+    (all in parallel).  Returns its launches."""
+    import torch
+    from george_tpu_torch import _build
+    from george_tpu_torch.samplers import build_gp_log_prob
+
+    t0 = time.time()
+    log("phase 1: the kernels of phase 31")
+    x, y, yerr = bench_data(N)
+    lp, _ = build_gp_log_prob(main_gp(dev), x, y, yerr, device=dev)
+    xd, yd, yerrd = config5_data()
+    dense_lp, _ = build_gp_log_prob(config5_gp(dev), xd, yd, yerrd,
+                                    method="dense", device=dev)
+    _build.build_many(
+        [vg.spec.instance(torch.float64) for vg in (
+            lp.kalman_vg, dense_lp.dense_vg, smc_posterior(dev)[1].dense_vg)]
+        + [inst for _, _, inst in example_instances(dev)])
+    log("  built in {0:.1f} s".format(time.time() - t0))
+    return run_examples(
+        lambda title: log("phase {0} (at {1:.1f} s)".format(
+            title, time.time() - t0)), dev, card)
+
+
 def main():
     try:
         import torch
@@ -4515,15 +4787,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     alone = sys.argv[1:] == ["--phases", "28-30"]
+    examples_alone = sys.argv[1:] == ["--phases", "31"]
     t0 = time.time()
     try:
-        kernels = run_alone(dev, card) if alone else run(dev, card)
+        if alone:
+            kernels = run_alone(dev, card)
+        elif examples_alone:
+            kernels = run_examples_alone(dev, card)
+        else:
+            kernels = run(dev, card)
     except Failure as exc:
         print("chip_smoke: FAILED: {0}".format(exc), file=sys.stderr)
         return 1
     log("all phases passed in {0:.1f} s".format(time.time() - t0))
     log(card)
     print(json.dumps({"sharded_launches_per_rank": kernels} if alone
+                     else {"examples_launches": kernels} if examples_alone
                      else {"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -241,8 +241,9 @@ class GP(ModelSet):
 
     # -- factorization ---------------------------------------------------------------
 
-    def compute(self, x, yerr=0.0):
-        """Factorize K(x, x) + diag(yerr^2 + exp(white_noise))."""
+    def compute(self, x, yerr=0.0, **kwargs):
+        """Factorize K(x, x) + diag(yerr^2 + exp(white_noise)); ``kwargs``
+        go to the solver's ``compute``."""
         self._x = self.parse_samples(x)
         n = self._x.shape[0]
         yerr = np.asarray(yerr, dtype=np.float64)
@@ -254,20 +255,21 @@ class GP(ModelSet):
         noise = self._yerr2 + np.exp(self._call_white_noise(self._x))
         self.solver = self.solver_type(self.kernel, device=self.device,
                                        dtype=self.dtype, **self.solver_kwargs)
-        self.solver.compute(self._x, np.sqrt(noise))
+        self.solver.compute(self._x, np.sqrt(noise), **kwargs)
         self._const = -0.5 * (
             n * np.log(2 * np.pi) + self.solver.log_determinant
         )
         self.computed = True
         self._alpha = None
 
-    def recompute(self, quiet=False):
-        """Refactorize if the parameters changed since the last compute."""
+    def recompute(self, quiet=False, **kwargs):
+        """Refactorize if the parameters changed since the last compute
+        (``kwargs`` as for :meth:`compute`)."""
         if not self.computed:
             if not (hasattr(self, "_x") and hasattr(self, "_yerr2")):
                 raise RuntimeError("You need to compute the model first")
             try:
-                self.compute(self._x, np.sqrt(self._yerr2))
+                self.compute(self._x, np.sqrt(self._yerr2), **kwargs)
             except (ValueError, LinAlgError):
                 if quiet:
                     return False

@@ -36,13 +36,21 @@ def traceable_model_fn(model, x_host, device, dtype, allow_baked=True):
     """Return ``f(params (B, p), x) -> (B, N) or (N,)`` for a mean /
     white-noise model.
 
-    Supported forms: :class:`ConstantModel` (closed form, for any number of
-    rows); any model with *no active parameters* (its host value at
-    ``x_host`` baked in; ``allow_baked=True`` only: callers that evaluate
-    the model on other rows, e.g. a rank's shard on the distributed
-    Cholesky path, pass ``allow_baked=False``); a :class:`CallableModel`
-    whose function takes a torch tensor.
+    Supported forms, in this order (the JAX package's):
+      * the model defines ``torch_value(params, x)`` (the documented hook
+        for custom models, the counterpart of ``jax_value``): one chain's
+        (p,) parameter tensor and the (N, d) inputs on the density's device
+        to the (N,) values, in torch operations; applied over the chains
+        with ``torch.func.vmap``, for any number of rows;
+      * :class:`ConstantModel` (closed form, for any number of rows);
+      * any model with *no active parameters* (its host value at
+        ``x_host`` baked in; ``allow_baked=True`` only: callers that
+        evaluate the model on other rows, e.g. a rank's shard on the
+        distributed Cholesky path, pass ``allow_baked=False``);
+      * a :class:`CallableModel` whose function takes a torch tensor.
     """
+    if hasattr(model, "torch_value"):
+        return torch.func.vmap(model.torch_value, in_dims=(0, None))
     n = len(x_host)
     if isinstance(model, ConstantModel):
         return lambda params, x: params[:, :1] + x.new_zeros(x.shape[0])
@@ -55,8 +63,8 @@ def traceable_model_fn(model, x_host, device, dtype, allow_baked=True):
     if isinstance(model, CallableModel):
         return lambda params, x: model.function(x)
     raise TypeError(
-        "model {0} has active parameters and no torch form; use a "
-        "ConstantModel or a parameter-free model{1}".format(
+        "model {0} has active parameters and no torch form{1}; define a "
+        "torch_value(params, x) method".format(
             type(model).__name__, "" if allow_baked else
             " (baked host constants are not usable here: the model is "
             "evaluated on per-rank data shards)")
@@ -235,6 +243,11 @@ def _build_state_space_log_prob(gp, node, x_host, y_host, yerr2, log_prior,
     n_wn, v_eff = _scalar_or_baked(gp.white_noise, x_sorted, yerr2_sorted,
                                    lambda v, w: v + np.exp(w))
     if n_mean is None or n_wn is None:
+        _engine_note("{0} model is neither a scalar ConstantModel nor "
+                     "parameter-free".format(
+                         "mean" if n_mean is None else "white-noise"),
+                     what="state-space sampler path: falling back to the "
+                          "plain filter")
         return log_prob
     active = tuple(int(i) for i in unfrozen.tolist())
     vg_core = kalman.make_kalman_vg(
